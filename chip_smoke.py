@@ -1,0 +1,438 @@
+#!/usr/bin/env python3
+"""On-card smoke test of opensplat_tpu_torch: build, check, train, time.
+
+Run from the repository root on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and the script exits non-zero):
+  1. print the card's name and power limit (nvidia-smi) and build the
+     CUDA kernels from opensplat_tpu_torch/csrc into opensplat_tpu_torch/
+     _build/ (timed);
+  2. hold each kernel against its plain PyTorch version on the card, on
+     the 16384-Gaussian 256 px scene of bench.py;
+  3. train the bench.py headline model through Trainer.run_step: 131072
+     Gaussians from init_model, 512x512, SH degree 3 from step 3, three
+     cameras, 20 steps. Every loss must be finite, the last below the
+     first, and each kernel's launch counter must advance once per step.
+     The kernels are timed with CUDA events over the last 10 steps;
+  4. at the main path's shapes (the trained state, camera 0) hold each
+     kernel against its plain version again, time the plain versions and
+     segment sum's library yardstick (index_add_, never called by the
+     port), and compute each kernel's bound from this run's data.
+The line before the last is the {"kernels": [...]} table; the last line
+is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
+and prints no result. It imports nothing of JAX or opensplat_tpu.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# Published peaks (NVIDIA data sheets, dense): device memory bytes/s and
+# float32 operations/s outside the tensor cores, by card name.
+PEAKS = {
+    "H100 PCIe": (2.0e12, 51.2e12),
+    "H100 NVL": (3.9e12, 60.0e12),
+    "H100": (3.35e12, 67.0e12),  # SXM (HBM3)
+    "H200": (4.8e12, 67.0e12),
+}
+# float32 operations per unit of work, counted from the kernels' code
+OPS_PER_CANDIDATE = 70  # expansion: tile math + the 4-edge cull bound
+OPS_PER_PAIR_FWD = 20  # forward: sigma, exp, alpha, stop test, composite
+OPS_PER_PAIR_BWD = 45  # backward: replay + the nine gradient terms
+OPS_PER_RECORD_SUM = 9  # segment sum: nine adds per record
+
+KERNELS = {
+    "expand": ("opensplat_tpu_torch/csrc/expand.cu",
+               "opensplat_tpu/ops/pallas/expand.py:110"),
+    "raster_fwd": ("opensplat_tpu_torch/csrc/raster_fwd.cu",
+                   "opensplat_tpu/ops/pallas/raster.py:248"),
+    "raster_bwd": ("opensplat_tpu_torch/csrc/raster_bwd.cu",
+                   "opensplat_tpu/ops/pallas/raster.py:423"),
+    "segsum": ("opensplat_tpu_torch/csrc/segsum.cu",
+               "opensplat_tpu/ops/pallas/segsum.py:59"),
+}
+
+
+class Camera:
+    def __init__(self, eye, size, image):
+        self.cam_to_world = np.eye(4, dtype=np.float32)
+        self.cam_to_world[:3, 3] = eye
+        self.fx = self.fy = 0.9 * size
+        self.cx = self.cy = size / 2.0
+        self.width = self.height = size
+        self._image = image
+
+    def get_image(self, factor):
+        assert factor == 1
+        return self._image
+
+
+def make_scene(n_points, size, seed, device):
+    """bench.py's scene: points uniform in [-1.5, 1.5]^3, random colours
+    and ground truth, camera at z = +6 with fx = fy = 0.9 * size, plus two
+    cameras at small offsets."""
+    from opensplat_tpu_torch.models.gaussians import init_model
+
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.5, 1.5, (n_points, 3)).astype(np.float32)
+    rgb = rng.integers(0, 255, (n_points, 3)).astype(np.uint8)
+    state = init_model(pts, rgb, sh_degree=3, capacity=n_points, seed=seed,
+                       device=device)
+    gt = rng.uniform(0, 1, (size, size, 3)).astype(np.float32)
+    cams = [Camera(e, size, gt) for e in
+            ((0.0, 0.0, 6.0), (0.1, 0.0, 6.0), (0.0, 0.1, 6.0))]
+    return state, cams
+
+
+def stage_inputs(state, cam, sh_deg, seed):
+    """The four kernels' inputs for one render of `cam`, built with the
+    port's own stages (projection, SH, binning, forward kernel)."""
+    import torch
+
+    from opensplat_tpu_torch.models.splat_model import DEFAULT_BACKGROUND
+    from opensplat_tpu_torch.ops.binning import bin_gaussians, num_tiles
+    from opensplat_tpu_torch.ops.camera import camera_matrices
+    from opensplat_tpu_torch.ops.kernels import raster
+    from opensplat_tpu_torch.ops.projection import project_gaussians
+    from opensplat_tpu_torch.ops.sh import spherical_harmonics
+
+    dev = state.device
+    p = state.params
+    h = w = cam.width
+    with torch.no_grad():
+        c2w = torch.as_tensor(cam.cam_to_world, device=dev)
+        viewmat, proj_m, cam_pos = camera_matrices(c2w, cam.fx, cam.fy, w, h)
+        opac = torch.sigmoid(p.opacities).reshape(-1).contiguous()
+        proj = project_gaussians(
+            p.means, torch.exp(p.scales), 1.0,
+            p.quats / torch.linalg.norm(p.quats, dim=-1, keepdim=True),
+            viewmat, proj_m, cam.fx, cam.fy, cam.cx, cam.cy, h, w,
+            valid_mask=state.alive, opacities=opac)
+        vd = p.means - cam_pos
+        vd = vd / torch.clamp(torch.linalg.norm(vd, dim=-1, keepdim=True),
+                              min=1e-12)
+        colors = torch.clamp(spherical_harmonics(
+            sh_deg, vd, torch.cat([p.features_dc[:, None], p.features_rest],
+                                  1)) + 0.5, min=0.0).contiguous()
+        binned = bin_gaussians(proj, h, w, opac)
+        tb_x, tb_y = num_tiles(h, w)
+        cnt = proj.num_tiles_hit.to(torch.int32).contiguous()
+        starts = (torch.cumsum(cnt.long(), 0) - cnt.long()).contiguous()
+        s_max = torch.log(torch.clamp(opac, min=1e-12) / (1.0 / 255.0))
+        expand_args = (cnt, starts, binned.n_cands,
+                       proj.tile_min.contiguous(), proj.tile_max.contiguous(),
+                       proj.depths.contiguous(), proj.xys.contiguous(),
+                       proj.conics.contiguous(), s_max.contiguous(), tb_x,
+                       tb_x * tb_y)
+        bg = torch.tensor(DEFAULT_BACKGROUND, device=dev)
+        fwd_args = (binned.gauss_ids, binned.tile_start, binned.tile_end,
+                    proj.xys.contiguous(), proj.conics.contiguous(), opac,
+                    colors, bg, h, w)
+        img, final_t, fidx = raster.rasterize_forward(*fwd_args)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        v_img = torch.randn((h, w, 3), generator=gen, device=dev)
+        v_ft = torch.randn((h, w), generator=gen, device=dev)
+        bwd_args = fwd_args[:8] + (final_t, fidx, v_img, v_ft, h, w)
+    return dict(expand=expand_args, fwd=fwd_args, bwd=bwd_args,
+                binned=binned, fidx=fidx, img=img)
+
+
+def check_kernels(inp, label):
+    """Each kernel against its plain version on the same inputs; raises
+    on disagreement. Returns {kernel: max_abs_err} and the gradient rows."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels import expand, raster, segsum
+
+    errs = {}
+    with torch.no_grad():
+        k = expand.expand(*inp["expand"])
+        q = expand.expand_plain(*inp["expand"])
+        for name, a, b in zip(("keys", "gids", "kept"), k, q):
+            if not torch.equal(a, b):
+                raise AssertionError(f"[{label}] expand: {name} differ in "
+                                     f"{int((a != b).sum())} places")
+        errs["expand"] = 0.0
+        b = inp["binned"]
+        ks, _ = torch.sort(k[0], stable=True)
+        qs, _ = torch.sort(q[0], stable=True)
+        if not torch.equal(ks, qs):
+            raise AssertionError(f"[{label}] expand: sorted streams differ")
+
+        img_k, ft_k, fi_k = raster.rasterize_forward(*inp["fwd"])
+        img_p, ft_p, fi_p = raster.rasterize_forward_plain(*inp["fwd"])
+        e_img = float((img_k - img_p).abs().max())
+        e_ft = float((ft_k - ft_p).abs().max())
+        agree = float((fi_k == fi_p).float().mean())
+        if not (e_img <= 1e-4 and e_ft <= 1e-5 and agree >= 0.999):
+            raise AssertionError(
+                f"[{label}] raster_fwd: image err {e_img} (atol 1e-4), "
+                f"final_T err {e_ft} (atol 1e-5), final_idx agreement "
+                f"{agree} (>= 0.999)")
+        errs["raster_fwd"] = e_img
+
+        g_k = raster.rasterize_backward(*inp["bwd"])
+        g_p = raster.rasterize_backward_plain(*inp["bwd"])
+        scale = float(g_p.abs().max()) + 1e-30
+        bad = (g_k - g_p).abs() > 1e-3 * g_p.abs() + 1e-5 * scale
+        if bool(bad.any()):
+            raise AssertionError(
+                f"[{label}] raster_bwd: {int(bad.sum())} of {bad.numel()} "
+                f"gradient values outside rtol 1e-3, atol 1e-5*max|g|")
+        errs["raster_bwd"] = float((g_k - g_p).abs().max())
+
+        perm, off = segsum.gid_order(b.gauss_ids, b.isect_counts)
+        args = (perm, off, b.isect_counts.contiguous(), g_k)
+        s_k = segsum.segment_sum_sorted(*args)
+        s_p = segsum.segment_sum_plain(*args)
+        sc = float(s_p.abs().max()) + 1e-30
+        bad = (s_k - s_p).abs() > 1e-5 * s_p.abs() + 1e-6 * sc
+        if bool(bad.any()):
+            raise AssertionError(
+                f"[{label}] segsum: {int(bad.sum())} values outside rtol "
+                f"1e-5, atol 1e-6*max|s|")
+        errs["segsum"] = float((s_k - s_p).abs().max())
+    print(f"[{label}] kernels agree with their plain versions: "
+          + json.dumps(errs), flush=True)
+    return errs, g_k
+
+
+def profile_steps(trainer, first_step, n, step_ms):
+    """Where a step's device time goes: torch.profiler over n more steps,
+    device time per step by kernel, and the device's busy share of the
+    unprofiled steady step time `step_ms`."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for step in range(first_step, first_step + n):
+            trainer.run_step(step)
+        torch.cuda.synchronize()
+    # kernels only: an operator's row repeats its kernels' device time
+    rows = [(e.key, e.self_device_time_total / 1e3 / n)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(ms for _, ms in rows)
+    if busy == 0:
+        print("step profile: device time not measured (no CUDA events)")
+        return
+    print(f"step profile: device busy {busy:.3f} ms of a {step_ms:.3f} ms "
+          f"step ({100 * busy / step_ms:.1f}%, idle "
+          f"{100 * (1 - busy / step_ms):.1f}%); top kernels, ms/step:")
+    for key, ms in rows[:15]:
+        print(f"  {ms:8.4f}  {key[:90]}")
+
+
+def time_ms(fn, reps):
+    import torch
+
+    fn()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    out = []
+    for _ in range(reps):
+        s.record()
+        fn()
+        e.record()
+        torch.cuda.synchronize()
+        out.append(s.elapsed_time(e))
+    return statistics.median(out)
+
+
+def bounds(inp, peak_bw, peak_ops):
+    """(bound_ms, bound_by) per kernel from this run's data: bytes each
+    input read once and each output written once over the memory rate,
+    against the float32 operations the data needs over the peak rate."""
+    import torch
+
+    b = inp["binned"]
+    c = inp["expand"][0].shape[0]
+    h, w = inp["fwd"][8], inp["fwd"][9]
+    n_tiles = b.tile_start.shape[0]
+    n_cand = b.n_cands
+    n_isect = int(b.n_isects)
+    start = b.tile_start.long()
+    count = b.tile_end.long() - start
+    f = inp["fidx"].long()
+    eff = torch.where(f >= 2**30, count[:, None], f - start[:, None])
+    replay = int(torch.minimum(eff.amax(1), count).sum())  # records replayed
+    pairs = 256 * replay
+    table = c * 36  # xys, conics, opacity, colours
+    work = {
+        "expand": (c * 56 + n_cand * 12 + c * 4, n_cand * OPS_PER_CANDIDATE),
+        "raster_fwd": (table + replay * 4 + n_tiles * 8 + h * w * 16
+                       + n_tiles * 256 * 4, pairs * OPS_PER_PAIR_FWD),
+        "raster_bwd": (table + replay * 4 + n_tiles * 8 + h * w * 20
+                       + n_tiles * 256 * 4 + replay * 36,
+                       pairs * OPS_PER_PAIR_BWD),
+        "segsum": (n_isect * 44 + c * 12 + c * 36,
+                   n_isect * OPS_PER_RECORD_SUM),
+    }
+    out = {}
+    for k, (nbytes, ops) in work.items():
+        tb = nbytes / peak_bw * 1e3
+        to = ops / peak_ops * 1e3
+        out[k] = (max(tb, to), "bytes" if tb >= to else "operations")
+    return out
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: FAIL: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: FAIL: torch.cuda.is_available() is false",
+              file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(REPO, "opensplat_tpu_torch", "csrc")):
+        print("chip_smoke: FAIL: opensplat_tpu_torch/ not found beside "
+              "chip_smoke.py", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    t_all = time.perf_counter()
+
+    # phase 1: the card, and the kernels' build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)  # the card's name and power limit
+    kind = torch.cuda.get_device_name(0)
+    peak = next((v for k, v in PEAKS.items() if k in kind), None)
+    if peak is None:
+        raise RuntimeError(f"no published peaks for {kind!r}")
+    from opensplat_tpu_torch.ops.kernels import _lib, expand, raster, segsum
+
+    t0 = time.perf_counter()
+    _lib.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s "
+          f"(nvcc {_lib.build_seconds:.1f} s)", flush=True)
+    for line in _lib.build_log.splitlines():
+        if "registers" in line or line.startswith("---"):
+            print("  " + line.strip())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # phase 2: kernels against plain versions on the 16384 / 256 px scene
+    st16, cams16 = make_scene(16384, 256, 0, "cuda")
+    check_kernels(stage_inputs(st16, cams16[0], 3, 1), "16384 g, 256 px")
+    del st16, cams16
+
+    # phase 3: training through the normal entry point at full width
+    from opensplat_tpu_torch.config import TrainConfig
+    from opensplat_tpu_torch.train import Trainer
+
+    state, cams = make_scene(131072, 512, 0, "cuda")
+    cfg = TrainConfig(num_downscales=0, sh_degree_interval=1,
+                      capacity_round=131072)
+    trainer = Trainer(state, cams, cfg, device="cuda")
+    wrappers = {"expand": expand.expand,
+                "raster_fwd": raster.rasterize_forward,
+                "raster_bwd": raster.rasterize_backward,
+                "segsum": segsum.segment_sum_sorted}
+    n_steps = 20
+    for fn in wrappers.values():
+        fn.launches = 0
+    _lib.TIMES.reset()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    torch.cuda.synchronize()
+    t_train = time.perf_counter()
+    t_steady = None
+    for step in range(1, n_steps + 1):
+        if step == n_steps - 9:
+            torch.cuda.synchronize()
+            t_steady = time.perf_counter()
+            _lib.TIMES.enabled = True
+        out = trainer.run_step(step)
+        losses.append(out.loss)
+        metrics = out.metrics
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    _lib.TIMES.enabled = False
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    kernel_ms = {k: statistics.median(v)
+                 for k, v in _lib.TIMES.millis().items()}
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"nonfinite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses[0]} -> {losses[-1]}")
+    for k, n in launches.items():
+        if n != n_steps:
+            raise AssertionError(f"{k}: {n} launches in {n_steps} steps")
+    steps_per_s = 10 / (t_end - t_steady)
+    print(f"train: 131072 g, 512 px, 20 steps in {t_end - t_train:.2f} s; "
+          f"steady {steps_per_s:.3f} steps/s over the last 10; loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB", flush=True)
+    print("demand (last step): " + json.dumps(
+        {k: int(metrics[k]) for k in ("n_cands", "n_isects", "n_grads")}))
+    print("kernel ms per step (median of the last 10, CUDA events): "
+          + json.dumps({k: round(v, 4) for k, v in kernel_ms.items()}))
+    profile_steps(trainer, n_steps + 1, 3, 1e3 / steps_per_s)
+
+    # phase 4: main-path shapes — agreement, plain and library times, bounds
+    inp = stage_inputs(trainer.state, cams[0], 3, 2)
+    if inp["img"].shape != (512, 512, 3) or not bool(
+            torch.isfinite(inp["img"]).all()):
+        raise AssertionError("rendered image: wrong shape or nonfinite")
+    errs, g_rec = check_kernels(inp, "131072 g, 512 px (main path)")
+    b = inp["binned"]
+    perm, off = segsum.gid_order(b.gauss_ids, b.isect_counts)
+    sargs = (perm, off, b.isect_counts.contiguous(), g_rec)
+    plain = {
+        "expand": lambda: expand.expand_plain(*inp["expand"]),
+        "raster_fwd": lambda: raster.rasterize_forward_plain(*inp["fwd"]),
+        "raster_bwd": lambda: raster.rasterize_backward_plain(*inp["bwd"]),
+        "segsum": lambda: segsum.segment_sum_plain(*sargs),
+    }
+    plain_ms = {k: time_ms(fn, 5) for k, fn in plain.items()}
+    n_isect = int(b.n_isects)
+    valid = b.gauss_ids[:n_isect].long()
+    rec = g_rec[:n_isect]
+    c = b.isect_counts.shape[0]
+    library_ms = time_ms(
+        lambda: torch.zeros((c, 9), device="cuda").index_add_(0, valid, rec),
+        20)
+    bnd = bounds(inp, *peak)
+    table = []
+    for k, (src, rep) in KERNELS.items():
+        table.append({
+            "name": k, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[k], "max_abs_err": errs[k],
+            "ms": kernel_ms[k], "plain_ms": plain_ms[k],
+            "bound_ms": bnd[k][0], "bound_by": bnd[k][1],
+            "library_ms": library_ms if k == "segsum" else None,
+        })
+    for row in table:
+        print(f"  {row['name']:<10} {row['ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  plain "
+              f"{row['plain_ms']:.3f} ms  launches {row['launches']}")
+    print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
+    if "jax" in sys.modules or "opensplat_tpu" in sys.modules:
+        raise AssertionError("jax or opensplat_tpu was imported")
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

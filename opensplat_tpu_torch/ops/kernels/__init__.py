@@ -1,0 +1,8 @@
+"""The port's hand-written Hopper kernels (sources in csrc/), each beside
+its plain PyTorch version and launch counter:
+
+  expand.expand ........................ candidate expansion + cull
+  raster.rasterize_forward ............. tile compositing, forward
+  raster.rasterize_backward ............ tile replay, per-record gradients
+  segsum.segment_sum_sorted ............ per-Gaussian gradient sums
+"""

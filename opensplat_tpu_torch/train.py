@@ -1,0 +1,216 @@
+"""One training step and the host-side training loop.
+
+Counterpart of opensplat_tpu/train.py (reference opensplat.cpp:151-196):
+forward, L1 + SSIM loss, backward, masked Adam on the six parameter
+groups, the means learning-rate schedule and the densify statistics.
+PyTorch runs eagerly, so there is no jit and no static budget: the
+intersection streams are sized exactly each step (one device-to-host
+read of the candidate total), and the demand counters n_cands, n_isects
+and n_grads are reported with the JAX package's meaning.
+"""
+from __future__ import annotations
+
+from collections import OrderedDict
+from dataclasses import dataclass
+from typing import List
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .config import TrainConfig
+from .models.densify import accumulate_stats
+from .models.gaussians import PARAM_NAMES, GaussianParams, TrainState
+from .models.splat_model import DEFAULT_BACKGROUND, render_forward
+from .ops.ssim import main_loss, psnr
+from .optim.adam import adam_update, means_lr_schedule
+
+
+def get_downscale_factor(step: int, cfg: TrainConfig) -> int:
+    """2^max(num_downscales - step / resolution_schedule, 0) (model.cpp:249-251)."""
+    return 2 ** max(cfg.num_downscales - step // cfg.resolution_schedule, 0)
+
+
+def sh_degrees_for_step(step: int, cfg: TrainConfig) -> int:
+    """min(step / sh_degree_interval, sh_degree) (model.cpp:178)."""
+    return min(step // cfg.sh_degree_interval, cfg.sh_degree)
+
+
+def train_step_impl(
+    state: TrainState,
+    cam_to_world: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    gt_image: torch.Tensor,
+    means_lr: float,
+    height: int,
+    width: int,
+    sh_deg: int,
+    cfg: TrainConfig,
+    accumulate: bool,
+    renderer: str = "fast",
+):
+    """One optimisation step. Updates `state` in place (parameters, Adam
+    moments and count, stats) and returns (state, metrics); metrics are
+    device tensors, read only when the caller asks."""
+    dev = state.device
+    capacity = state.alive.shape[0]
+    background = torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32,
+                              device=dev)
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in state.params.as_dict().items()}
+    xys_shift = torch.zeros((capacity, 2), dtype=torch.float32, device=dev,
+                            requires_grad=True)
+    out = render_forward(
+        GaussianParams(**leaves), state.alive, cam_to_world, fx, fy, cx, cy,
+        height, width, sh_deg, background, xys_shift=xys_shift,
+        renderer=renderer, device=dev)
+    loss = main_loss(out.rgb, gt_image, cfg.ssim_weight)
+    grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_NAMES]
+                                + [xys_shift], allow_unused=True)
+    g_params = {k: (g if g is not None else torch.zeros_like(leaves[k]))
+                for k, g in zip(PARAM_NAMES, grads[:-1])}
+    lrs = {
+        "means": means_lr,
+        "scales": cfg.lr_scales,
+        "quats": cfg.lr_quats,
+        "features_dc": cfg.lr_features_dc,
+        "features_rest": cfg.lr_features_rest,
+        "opacities": cfg.lr_opacities,
+    }
+    adam_update(state.params.as_dict(), g_params, state.opt, lrs, state.alive)
+    if accumulate:  # step < stop_split_at, host-known
+        state.stats = accumulate_stats(state.stats, grads[-1], out.radii,
+                                       height, width)
+    with torch.no_grad():
+        metrics = {
+            "loss": loss.detach(),
+            "psnr": psnr(out.rgb.detach(), gt_image),
+            "n_visible": out.mask.sum(),
+            "n_isects": out.n_isects,
+            "n_cands": out.n_cands,
+            "n_grads": out.n_grads,
+            "n_alive": state.alive.sum(),
+        }
+    return state, metrics
+
+
+def train_step(state: TrainState, *args, device="cuda", **kwargs):
+    """train_step_impl on `device` (CUDA unless the caller asks for the
+    CPU); the state must already live there."""
+    dev = resolve_device(device)
+    if state.device.type != dev.type:
+        raise ValueError(f"train_step: state is on {state.device}, "
+                         f"device={device!r}")
+    return train_step_impl(state, *args, **kwargs)
+
+
+class InfiniteRandomSampler:
+    """Reshuffling camera sampler (utils.hpp:14-38 semantics, numpy RNG)."""
+
+    def __init__(self, n: int, seed: int = 42):
+        self._rng = np.random.default_rng(seed)
+        self._n = n
+        self._order = self._rng.permutation(n)
+        self._i = 0
+
+    def next(self) -> int:
+        idx = int(self._order[self._i])
+        self._i += 1
+        if self._i >= self._n:
+            self._order = self._rng.permutation(self._n)
+            self._i = 0
+        return idx
+
+
+@dataclass
+class StepOutcome:
+    """The step's metrics as device tensors; reading `loss` syncs."""
+
+    metrics: dict
+
+    @property
+    def loss(self) -> float:
+        return float(self.metrics["loss"])
+
+
+class Trainer:
+    """Host-side orchestration: camera sampling, resolution and SH
+    schedules, the ground-truth cache and the demand counters.
+
+    `cameras` are objects with cam_to_world (4x4), fx, fy, cx, cy, width,
+    height and get_image(factor) -> (H, W, 3) float image in [0, 1]."""
+
+    def __init__(self, state: TrainState, cameras: List, cfg: TrainConfig,
+                 renderer: str = "fast", device="cuda"):
+        self.device = resolve_device(device)
+        if state.device.type != self.device.type:
+            raise ValueError(f"Trainer: state is on {state.device}, "
+                             f"device={device!r}")
+        self.state = state
+        self.cameras = cameras
+        self.cfg = cfg
+        self.renderer = renderer
+        self.sampler = InfiniteRandomSampler(len(cameras), seed=cfg.seed)
+        # largest [n_cands, n_isects, n_grads] seen per resolution; the
+        # streams are sized exactly each step, so demand never overflows
+        self.demand: dict = {}
+        self._gt_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
+        self._gt_cache_used = 0
+        self._gt_cache_budget = max(0, int(cfg.gt_cache_mb)) * (1 << 20)
+
+    def _gt_on_device(self, cam_idx: int, factor: int) -> torch.Tensor:
+        """GT image on the device, cached per (camera, factor) under
+        cfg.gt_cache_mb (LRU)."""
+        key = (cam_idx, factor)
+        hit = self._gt_cache.get(key)
+        if hit is not None:
+            self._gt_cache.move_to_end(key)
+            return hit
+        arr = torch.as_tensor(
+            np.asarray(self.cameras[cam_idx].get_image(factor), np.float32),
+            device=self.device)
+        nbytes = arr.numel() * arr.element_size()
+        if nbytes > self._gt_cache_budget:
+            return arr
+        while self._gt_cache and (
+                self._gt_cache_used + nbytes > self._gt_cache_budget):
+            _, old = self._gt_cache.popitem(last=False)
+            self._gt_cache_used -= old.numel() * old.element_size()
+        self._gt_cache[key] = arr
+        self._gt_cache_used += nbytes
+        return arr
+
+    def run_step(self, step: int) -> StepOutcome:
+        cfg = self.cfg
+        cam_idx = self.sampler.next()
+        cam = self.cameras[cam_idx]
+        factor = get_downscale_factor(step, cfg)
+        gt = self._gt_on_device(cam_idx, factor)
+        h, w = int(gt.shape[0]), int(gt.shape[1])
+        means_lr = means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
+                                     cfg.num_iters, step - 1)
+        self.state, metrics = train_step_impl(
+            self.state,
+            torch.as_tensor(np.asarray(cam.cam_to_world, np.float32),
+                            device=self.device),
+            cam.fx / factor, cam.fy / factor, cam.cx / factor,
+            cam.cy / factor, gt, means_lr, h, w,
+            sh_degrees_for_step(step, cfg), cfg,
+            accumulate=step < cfg.stop_split_at, renderer=self.renderer,
+        )
+        # demand is read at the JAX Trainer's cadence (warm-up steps,
+        # every 10th step, refine boundaries)
+        if step <= 3 or step % 10 == 0 or step % cfg.refine_every == 0:
+            d = [int(metrics[k]) for k in ("n_cands", "n_isects", "n_grads")]
+            prev = self.demand.get((h, w), [0, 0, 0])
+            self.demand[(h, w)] = [max(a, b) for a, b in zip(prev, d)]
+        if step % cfg.refine_every == 0 and step > cfg.warmup_length:
+            self._refine(step)
+        return StepOutcome(metrics)
+
+    def _refine(self, step: int):
+        raise NotImplementedError(
+            f"refine_step at step {step}: next port slice")
