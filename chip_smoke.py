@@ -19,7 +19,21 @@ Phases (any failure raises and the script exits non-zero):
   4. at the main path's shapes (the trained state, camera 0) hold each
      kernel against its plain version again, time the plain versions and
      segment sum's library yardstick (index_add_, never called by the
-     port), and compute each kernel's bound from this run's data.
+     port), and compute each kernel's bound from this run's data;
+  5. refine on the card: a fresh 131072-Gaussian 512 px SH 3 model from
+     the same scene at capacity = point count, 60 steps of
+     Trainer.run_step with warmup 20, refine every 10 and an alpha reset
+     every 3 refines (step 40 resets alpha, step 50 densifies with the
+     huge-cull and must grow capacity). Losses finite, each kernel
+     launched once per step at every capacity, n_alive as counted, and
+     Trainer.render gives a finite 512x512 image; then each kernel
+     against its plain version at the grown capacity;
+  6. the forward-kernel ablation bench: each variant of
+     csrc/raster_fwd_variants.cu against its plain version on a 64-tile
+     stream and again on the bench's default stream (1024 tiles x 1074
+     records, 32 tiles a row), then `python -m
+     opensplat_tpu_torch.tools.kbench_raster`'s run at that stream,
+     timing every variant beside the main path's forward kernel.
 The line before the last is the {"kernels": [...]} table; the last line
 is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
@@ -60,6 +74,8 @@ KERNELS = {
                    "opensplat_tpu/ops/pallas/raster.py:423"),
     "segsum": ("opensplat_tpu_torch/csrc/segsum.cu",
                "opensplat_tpu/ops/pallas/segsum.py:59"),
+    "kbench_fwd": ("opensplat_tpu_torch/csrc/raster_fwd_variants.cu",
+                   "tools/kbench_raster.py:74"),
 }
 
 
@@ -257,7 +273,8 @@ def bounds(inp, peak_bw, peak_ops):
     """(bound_ms, bound_by) per kernel from this run's data: bytes each
     input read once and each output written once over the memory rate,
     against the float32 operations the data needs over the peak rate."""
-    import torch
+    from opensplat_tpu_torch.ops.kernels.raster import (pairs_replayed,
+                                                        records_replayed)
 
     b = inp["binned"]
     c = inp["expand"][0].shape[0]
@@ -265,12 +282,13 @@ def bounds(inp, peak_bw, peak_ops):
     n_tiles = b.tile_start.shape[0]
     n_cand = b.n_cands
     n_isect = int(b.n_isects)
-    start = b.tile_start.long()
-    count = b.tile_end.long() - start
-    f = inp["fidx"].long()
-    eff = torch.where(f >= 2**30, count[:, None], f - start[:, None])
-    replay = int(torch.minimum(eff.amax(1), count).sum())  # records replayed
-    pairs = 256 * replay
+    # records read: per tile up to its last pixel's stop; (pixel, record)
+    # pairs: each pixel up to its own stop
+    replay = records_replayed(b.tile_start, b.tile_end, inp["fidx"])
+    pairs = pairs_replayed(b.tile_start, b.tile_end, inp["fidx"])
+    print(f"raster work (main path): {replay} records replayed, {pairs} "
+          f"(pixel, record) pairs needed, {256 * replay} in tiles that run "
+          f"to their last pixel's stop", flush=True)
     table = c * 36  # xys, conics, opacity, colours
     work = {
         "expand": (c * 56 + n_cand * 12 + c * 4, n_cand * OPS_PER_CANDIDATE),
@@ -288,6 +306,182 @@ def bounds(inp, peak_bw, peak_ops):
         to = ops / peak_ops * 1e3
         out[k] = (max(tb, to), "bytes" if tb >= to else "operations")
     return out
+
+
+def refine_phase(n_points, size, n_steps, device):
+    """Phase 5: train a fresh model past warm-up through Trainer.run_step,
+    refining at steps 30 (stats cleared), 40 (alpha reset), 50 (densify
+    with the huge-cull; capacity must grow) and 60. Returns the trainer
+    and its cameras."""
+    import torch
+
+    from opensplat_tpu_torch.config import TrainConfig
+    from opensplat_tpu_torch.ops.kernels import expand, raster, segsum
+    from opensplat_tpu_torch.train import Trainer
+
+    cuda = torch.device(device).type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    state, cams = make_scene(n_points, size, 0, device)
+    cfg = TrainConfig(num_downscales=0, sh_degree_interval=1,
+                      warmup_length=20, refine_every=10, reset_alpha_every=3)
+    trainer = Trainer(state, cams, cfg, device=device)
+    refines = []
+    run_refine = trainer._refine
+
+    def timed_refine(step):
+        cap0 = trainer.state.alive.shape[0]
+        trainer.refine_metrics = None
+        sync()
+        t0 = time.perf_counter()
+        run_refine(step)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        st = trainer.state
+        refines.append(dict(
+            step=step, ms=ms, cap_before=cap0, cap_after=st.alive.shape[0],
+            metrics=trainer.refine_metrics, n_alive=int(st.alive.sum()),
+            max_opacity=float(st.params.opacities.max())))
+
+    trainer._refine = timed_refine
+    wrappers = (expand.expand, raster.rasterize_forward,
+                raster.rasterize_backward, segsum.segment_sum_sorted)
+    for fn in wrappers:
+        fn.launches = 0
+    losses = []
+    grown_at = None
+    sync()
+    t_all = time.perf_counter()
+    for step in range(1, n_steps + 1):
+        before = [fn.launches for fn in wrappers]
+        if grown_at is not None and step == grown_at + 1:
+            sync()
+            t_steady = time.perf_counter()
+        losses.append(trainer.run_step(step).loss)
+        after = [fn.launches for fn in wrappers]
+        # (on CPU tensors, in a rehearsal, the wrappers count nothing)
+        if cuda and [a - b for a, b in zip(after, before)] != [1] * 4:
+            raise AssertionError(f"refine phase, step {step}: launches "
+                                 f"{before} -> {after}, not one each")
+        if refines and refines[-1]["step"] == step and grown_at is None \
+                and refines[-1]["cap_after"] > refines[-1]["cap_before"]:
+            grown_at = step
+    sync()
+    t_end = time.perf_counter()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"refine phase: nonfinite loss: {losses}")
+    for r in refines:
+        print(f"  refine at step {r['step']}: {r['ms']:.2f} ms, capacity "
+              f"{r['cap_before']} -> {r['cap_after']}, metrics "
+              f"{json.dumps(r['metrics'])}", flush=True)
+        m = r["metrics"]
+        if m is not None and m["n_alive"] != r["n_alive"]:
+            raise AssertionError(f"refine at step {r['step']}: n_alive "
+                                 f"{m['n_alive']} != {r['n_alive']} alive")
+    dens = [r for r in refines if r["metrics"] and "n_splits" in r["metrics"]
+            and r["metrics"]["n_splits"] + r["metrics"]["n_dups"] > 0
+            and r["cap_after"] > r["cap_before"]]
+    if not dens:
+        raise AssertionError("refine phase: no densify added Gaussians and "
+                             "grew capacity")
+    reset_logit = float(np.log(np.float32(0.2) / np.float32(0.8)))
+    resets = [r for r in refines if r["metrics"] == {
+        "n_alive": r["n_alive"]} and r["max_opacity"] <= reset_logit + 1e-6]
+    if not resets:
+        raise AssertionError("refine phase: no alpha reset")
+    counts = [fn.launches for fn in wrappers]
+    img = trainer.render(cams[0], n_steps)
+    if img.shape != (size, size, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("refine phase: render wrong shape or nonfinite")
+    steady = n_steps - grown_at
+    print(f"refine: {n_points} g, {size} px, {n_steps} steps in "
+          f"{t_end - t_all:.2f} s; densify at step {dens[0]['step']} "
+          f"({dens[0]['ms']:.2f} ms) grew capacity {dens[0]['cap_before']} "
+          f"-> {dens[0]['cap_after']}; alpha reset at step "
+          f"{resets[0]['step']} ({resets[0]['ms']:.2f} ms); steady "
+          f"{steady / (t_end - t_steady):.3f} steps/s over the {steady} "
+          f"steps after growth; loss {losses[0]:.5f} -> {losses[-1]:.5f}; "
+          f"launches {counts} in {n_steps} steps; "
+          f"render {tuple(img.shape)} finite", flush=True)
+    return trainer, cams
+
+
+def check_variants(stream, label):
+    """Phase 6's agreement: each variant kernel against its plain version
+    on `stream`. The kernel's running prefix and the plain version's
+    cumulative sum round differently, so a pixel whose stop test sits on
+    the threshold can stop one record apart in the two, and its colour
+    and T then differ by that record's whole contribution: final_idx must
+    agree on >= 99.9% of pixels, and rgb and T are held to their
+    tolerances where it agrees (everywhere in nostop, which never
+    stops). Prints every variant's reading, then raises if any failed.
+    Returns {variant: max_abs_err over all pixels} and the `full`
+    kernel's final_idx."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels import raster_variants as rv
+    from opensplat_tpu_torch.tools import kbench_raster as kb
+
+    args = kb.variant_args(stream)
+    errs, failed = {}, []
+    with torch.no_grad():
+        for name in rv.VARIANTS:
+            acc_k, fi_k = rv.rasterize_variant(name, *args)
+            acc_p, fi_p = rv.rasterize_variant_plain(name, *args)
+            d = (acc_k - acc_p).abs()
+            errs[name] = float(d.max())
+            if name == "full":
+                fidx_full = fi_k
+            if name == "skeleton":
+                ok = torch.equal(acc_k, acc_p)
+                what = "exact"
+            else:
+                same = fi_k == fi_p  # (T, 256)
+                agree = float(same.float().mean())
+                d = torch.where(same[:, None, :], d, 0.0)
+                # notrans's rgb goes negative and grows: relative to its
+                # largest |value|
+                rgb_tol = (1e-4 * float(acc_p[:, :3].abs().max())
+                           if name == "notrans" else 2e-4)
+                e_rgb = float(d[:, :3].max())
+                e_t = float(d[:, 3].max())
+                ok = e_rgb <= rgb_tol and e_t <= 1e-5 and agree >= 0.999
+                what = (f"final_idx differs at {int((~same).sum())} of "
+                        f"{same.numel()} pixels (agreement {agree}, >= "
+                        f"0.999); where it agrees rgb err {e_rgb} (atol "
+                        f"{rgb_tol:.3g}), T err {e_t} (atol 1e-5)")
+            print(f"[{label}] kbench_fwd {name}: max err {errs[name]}; "
+                  f"{what}", flush=True)
+            if not ok:
+                failed.append(name)
+    if failed:
+        raise AssertionError(f"[{label}] kbench_fwd variants {failed} "
+                             f"disagree with their plain versions")
+    return errs, fidx_full
+
+
+def kbench_bound(stream, fidx, peak_bw, peak_ops):
+    """(bound_ms, bound_by) of one `full` call with final_idx `fidx`,
+    counted as bounds() counts raster_fwd: the (pixel, record) pairs each
+    pixel replays up to its own stop x OPS_PER_PAIR_FWD, against each
+    record its tile replays read once (36 bytes), the tile ranges and
+    the outputs (acc, final_idx) written once."""
+    from opensplat_tpu_torch.ops.kernels.raster import (pairs_replayed,
+                                                        records_replayed)
+
+    n_tiles = stream.tile_start.shape[0]
+    replay = records_replayed(stream.tile_start, stream.tile_end, fidx)
+    pairs = pairs_replayed(stream.tile_start, stream.tile_end, fidx)
+    print(f"kbench work (full): {replay} records replayed, {pairs} (pixel, "
+          f"record) pairs needed, {256 * replay} in tiles that run to their "
+          f"last pixel's stop", flush=True)
+    nbytes = replay * 36 + n_tiles * 8 + n_tiles * 256 * (8 + 1) * 4
+    tb = nbytes / peak_bw * 1e3
+    to = pairs * OPS_PER_PAIR_FWD / peak_ops * 1e3
+    return max(tb, to), "bytes" if tb >= to else "operations"
 
 
 def main():
@@ -411,6 +605,41 @@ def main():
         lambda: torch.zeros((c, 9), device="cuda").index_add_(0, valid, rec),
         20)
     bnd = bounds(inp, *peak)
+
+    # phase 5: refine past warm-up on the card, then the kernels against
+    # their plain versions at the grown capacity, dead slots and all
+    ref_trainer, ref_cams = refine_phase(131072, 512, 60, "cuda")
+    st = ref_trainer.state
+    cap, n_alive = st.alive.shape[0], int(st.alive.sum())
+    check_kernels(stage_inputs(st, ref_cams[0], 3, 3),
+                  f"grown capacity {cap}, {n_alive} alive")
+    del ref_trainer, ref_cams, st
+
+    # phase 6: the forward-kernel ablation bench — agreement on a small
+    # stream first, then at the bench's own default stream
+    from opensplat_tpu_torch.ops.kernels import raster_variants
+    from opensplat_tpu_torch.tools import kbench_raster
+
+    check_variants(kbench_raster.make_stream(64, 1074, 8, device="cuda"),
+                   "64 tiles x 1074 records")
+    stream = kbench_raster.make_stream(device="cuda")
+    v_errs, fidx_full = check_variants(
+        stream, f"{stream.tile_start.shape[0]} tiles x 1074 records (bench)")
+    raster_variants.rasterize_variant.launches = 0
+    bench = kbench_raster.main([])  # its default stream, median of 30
+    launches["kbench_fwd"] = raster_variants.rasterize_variant.launches
+    if launches["kbench_fwd"] == 0:
+        raise AssertionError("the bench launched no variant kernel")
+    print("kbench ms per call (median of 30, CUDA events): "
+          + json.dumps({k: round(v[0], 4) for k, v in bench.items()}),
+          flush=True)
+    vargs = kbench_raster.variant_args(stream)
+    bnd["kbench_fwd"] = kbench_bound(stream, fidx_full, *peak)
+    plain_ms["kbench_fwd"] = time_ms(
+        lambda: raster_variants.rasterize_variant_plain("full", *vargs), 3)
+    kernel_ms["kbench_fwd"] = bench["full"][0]
+    errs["kbench_fwd"] = v_errs["full"]
+
     table = []
     for k, (src, rep) in KERNELS.items():
         table.append({

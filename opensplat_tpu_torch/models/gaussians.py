@@ -55,7 +55,9 @@ class TrainState:
         return self.alive.device
 
 
-def zero_stats(capacity: int, device="cpu") -> DensifyStats:
+def zero_stats(capacity: int, device) -> DensifyStats:
+    """Cleared statistics on `device` (no default: refine clears them on
+    the state's device at every boundary)."""
     z = torch.zeros((capacity,), dtype=torch.float32, device=device)
     return DensifyStats(
         xys_grad_norm=z, vis_counts=z.clone(), max_2d_size=z.clone(),
@@ -119,6 +121,38 @@ def init_model(
         alive=torch.from_numpy(alive).to(dev),
         opt=adam_init(params.as_dict()),
         stats=zero_stats(c, dev),
+    )
+
+
+def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
+    """Every (C, ...) tensor zero-padded to `new_capacity` rows: params,
+    alive (False), Adam mu and nu, stats. Padded quats are [1, 0, 0, 0],
+    valid rotations; opt.count and stats.initialized are kept. Returns a
+    new state: no tensor of the old one is reused."""
+    old_c = state.alive.shape[0]
+    assert new_capacity > old_c, (new_capacity, old_c)
+
+    def pad(x):
+        out = x.new_zeros((new_capacity,) + tuple(x.shape[1:]))
+        out[:old_c] = x
+        return out
+
+    params = GaussianParams(**{k: pad(v) for k, v in
+                               state.params.as_dict().items()})
+    params.quats[old_c:, 0] = 1.0
+    s = state.stats
+    return TrainState(
+        params=params,
+        alive=pad(state.alive),
+        opt=AdamState(mu={k: pad(v) for k, v in state.opt.mu.items()},
+                      nu={k: pad(v) for k, v in state.opt.nu.items()},
+                      count=state.opt.count),
+        stats=DensifyStats(
+            xys_grad_norm=pad(s.xys_grad_norm),
+            vis_counts=pad(s.vis_counts),
+            max_2d_size=pad(s.max_2d_size),
+            initialized=s.initialized.clone(),
+        ),
     )
 
 

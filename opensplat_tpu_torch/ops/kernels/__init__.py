@@ -5,4 +5,6 @@ its plain PyTorch version and launch counter:
   raster.rasterize_forward ............. tile compositing, forward
   raster.rasterize_backward ............ tile replay, per-record gradients
   segsum.segment_sum_sorted ............ per-Gaussian gradient sums
+  raster_variants.rasterize_variant .... the forward with pieces ablated
+                                         (the ablation bench's kernel)
 """

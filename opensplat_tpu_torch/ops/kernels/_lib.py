@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("errors.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
-           "segsum.cu")
+           "segsum.cu", "raster_fwd_variants.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libopensplat_kernels.so"
 NVCC_FLAGS = (
@@ -120,6 +120,10 @@ _SIGNATURES = {
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
                        ctypes.c_int),
     "osk_segsum": ([ctypes.c_int] + [ctypes.c_void_p] * 6, ctypes.c_int),
+    "osk_kbench_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 3,
+                       ctypes.c_int),
 }
 
 

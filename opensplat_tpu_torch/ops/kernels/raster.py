@@ -143,6 +143,29 @@ def rasterize_forward(gauss_ids, tile_start, tile_end, xys, conics, opac,
 rasterize_forward.launches = 0
 
 
+def _pixel_replay(tile_start, tile_end, final_idx):
+    """(T, 256) int64: the records each pixel composites, from its tile's
+    start up to its final_idx (the whole tile where it never stopped)."""
+    start = tile_start.long()
+    count = tile_end.long() - start
+    f = final_idx.reshape(start.shape[0], -1).long()
+    eff = torch.where(f >= STOP_SENTINEL, count[:, None], f - start[:, None])
+    return torch.minimum(eff, count[:, None])
+
+
+def records_replayed(tile_start, tile_end, final_idx) -> int:
+    """Records the tiles replay before their last pixel stops: per tile
+    the largest replay over its pixels, summed over tiles."""
+    return int(_pixel_replay(tile_start, tile_end, final_idx).amax(1).sum())
+
+
+def pairs_replayed(tile_start, tile_end, final_idx) -> int:
+    """(pixel, record) pairs the pixels replay, each pixel up to its own
+    stop: the work the function needs, where records_replayed x 256 is
+    the work of a tile that runs until its last pixel stops."""
+    return int(_pixel_replay(tile_start, tile_end, final_idx).sum())
+
+
 def compact_grad_layout(tile_start, tile_end, final_idx):
     """(comp_start (T,) int32, n_grads () int64): the JAX backward's
     compact gradient-stream layout (raster.py::compact_grad_layout) with
@@ -150,10 +173,7 @@ def compact_grad_layout(tile_start, tile_end, final_idx):
     chunks, glim being its replay limit. The port writes records at their
     stream index instead; n_grads is reported with the JAX meaning."""
     start = tile_start.long()
-    count = tile_end.long() - start
-    f = final_idx.reshape(final_idx.shape[0], -1).long()
-    eff = torch.where(f >= STOP_SENTINEL, count[:, None], f - start[:, None])
-    glim = start + torch.minimum(eff.amax(dim=1), count)
+    glim = start + _pixel_replay(tile_start, tile_end, final_idx).amax(1)
     base0 = start - start % K
     nch = torch.where(glim > base0, (glim - base0 + K - 1) // K, 0)
     sizes = nch * K

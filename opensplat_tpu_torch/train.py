@@ -2,25 +2,28 @@
 
 Counterpart of opensplat_tpu/train.py (reference opensplat.cpp:151-196):
 forward, L1 + SSIM loss, backward, masked Adam on the six parameter
-groups, the means learning-rate schedule and the densify statistics.
-PyTorch runs eagerly, so there is no jit and no static budget: the
-intersection streams are sized exactly each step (one device-to-host
-read of the candidate total), and the demand counters n_cands, n_isects
-and n_grads are reported with the JAX package's meaning.
+groups, the means learning-rate schedule and the densify statistics;
+refine with capacity growth every refine_every steps past warm-up; and
+the inference render. PyTorch runs eagerly, so there is no jit and no
+static budget: the intersection streams are sized exactly each step (one
+device-to-host read of the candidate total), and the demand counters
+n_cands, n_isects and n_grads are reported with the JAX package's
+meaning.
 """
 from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
 from .config import TrainConfig
-from .models.densify import accumulate_stats
-from .models.gaussians import PARAM_NAMES, GaussianParams, TrainState
+from .models.densify import accumulate_stats, count_refine_needs, refine_step
+from .models.gaussians import (PARAM_NAMES, GaussianParams, TrainState,
+                               grow_capacity, round_capacity, zero_stats)
 from .models.splat_model import DEFAULT_BACKGROUND, render_forward
 from .ops.ssim import main_loss, psnr
 from .optim.adam import adam_update, means_lr_schedule
@@ -138,7 +141,8 @@ class StepOutcome:
 
 class Trainer:
     """Host-side orchestration: camera sampling, resolution and SH
-    schedules, the ground-truth cache and the demand counters.
+    schedules, the ground-truth cache, the demand counters, refine
+    dispatch and capacity growth.
 
     `cameras` are objects with cam_to_world (4x4), fx, fy, cx, cy, width,
     height and get_image(factor) -> (H, W, 3) float image in [0, 1]."""
@@ -154,6 +158,12 @@ class Trainer:
         self.cfg = cfg
         self.renderer = renderer
         self.sampler = InfiniteRandomSampler(len(cameras), seed=cfg.seed)
+        # split noise for refine; it lives on the state's device, which
+        # capacity growth keeps
+        self.generator = torch.Generator(device=state.device).manual_seed(
+            cfg.seed)
+        self.last_hw = (0, 0)  # the last step's render size (refine's maxwh)
+        self.refine_metrics: Optional[dict] = None
         # largest [n_cands, n_isects, n_grads] seen per resolution; the
         # streams are sized exactly each step, so demand never overflows
         self.demand: dict = {}
@@ -170,7 +180,8 @@ class Trainer:
             self._gt_cache.move_to_end(key)
             return hit
         arr = torch.as_tensor(
-            np.asarray(self.cameras[cam_idx].get_image(factor), np.float32),
+            np.ascontiguousarray(self.cameras[cam_idx].get_image(factor),
+                                 np.float32),
             device=self.device)
         nbytes = arr.numel() * arr.element_size()
         if nbytes > self._gt_cache_budget:
@@ -190,6 +201,7 @@ class Trainer:
         factor = get_downscale_factor(step, cfg)
         gt = self._gt_on_device(cam_idx, factor)
         h, w = int(gt.shape[0]), int(gt.shape[1])
+        self.last_hw = (h, w)
         means_lr = means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
                                      cfg.num_iters, step - 1)
         self.state, metrics = train_step_impl(
@@ -212,5 +224,66 @@ class Trainer:
         return StepOutcome(metrics)
 
     def _refine(self, step: int):
-        raise NotImplementedError(
-            f"refine_step at step {step}: next port slice")
+        """The refine of model.cpp:339-494 at a refine boundary: grow
+        capacity first so that no candidate is dropped, then densify and/or
+        reset; on a boundary with neither, only the stats are cleared."""
+        cfg = self.cfg
+        reset_interval = cfg.reset_alpha_every * cfg.refine_every
+        num_cameras = len(self.cameras)
+        do_densification = (
+            step < cfg.stop_split_at
+            and step % reset_interval > num_cameras + cfg.refine_every)
+        do_reset = (step < cfg.stop_split_at
+                    and step % reset_interval == cfg.refine_every)
+        do_cull_huge = step > cfg.refine_every * cfg.reset_alpha_every
+        use_screen_size = step < cfg.stop_screen_size_at
+        maxwh = float(max(self.last_hw))
+
+        if do_densification:
+            n_alive, n_free, needed = count_refine_needs(
+                self.state, maxwh, cfg, use_screen_size)
+            if needed > n_free:
+                self.state = grow_capacity(self.state, round_capacity(
+                    int((n_alive + needed) * 1.25), cfg.capacity_round))
+
+        if do_densification or do_reset:
+            self.state, metrics = refine_step(
+                self.state, maxwh, cfg, use_screen_size, do_densification,
+                do_cull_huge, do_reset, generator=self.generator)
+            self.refine_metrics = {k: int(v) for k, v in metrics.items()}
+        else:
+            # stats are still cleared on every refine boundary (model.cpp:482)
+            self.state.stats = zero_stats(self.state.alive.shape[0],
+                                          self.state.device)
+
+    def render(self, cam, step: int) -> torch.Tensor:
+        """Inference render of `cam` at the step's resolution and SH degree
+        (val images, final PSNR): (H, W, 3) on the state's device. The JAX
+        Trainer re-renders once when a frame overflowed its static
+        intersection budget; the port sizes every stream exactly, so there
+        is nothing to overflow and one render is the answer."""
+        factor = get_downscale_factor(step, self.cfg)
+        rgb, _, _ = render_image(
+            self.state.params, self.state.alive,
+            torch.as_tensor(np.asarray(cam.cam_to_world, np.float32),
+                            device=self.device),
+            cam.fx / factor, cam.fy / factor, cam.cx / factor,
+            cam.cy / factor, int(cam.height / factor), int(cam.width / factor),
+            sh_degrees_for_step(step, self.cfg), self.renderer,
+            device=self.device)
+        return rgb
+
+
+@torch.no_grad()
+def render_image(params: GaussianParams, alive: torch.Tensor,
+                 cam_to_world: torch.Tensor, fx: float, fy: float, cx: float,
+                 cy: float, height: int, width: int, sh_deg: int,
+                 renderer: str = "fast", device="cuda"):
+    """Inference render without gradients: (rgb (H, W, 3), n_cands,
+    n_isects). The stream is sized exactly, so it needs no budgets."""
+    dev = resolve_device(device)
+    out = render_forward(
+        params, alive, cam_to_world, fx, fy, cx, cy, height, width, sh_deg,
+        torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32, device=dev),
+        renderer=renderer, device=dev)
+    return out.rgb, out.n_cands, out.n_isects

@@ -22,6 +22,11 @@ from opensplat_tpu_torch.ops.kernels import expand as texpand
 from opensplat_tpu_torch.ops.projection import ProjectedGaussians
 from scene_utils import make_scene
 
+# one intra-op thread per process: the suite runs one pytest-xdist
+# worker per core, and a full torch thread pool in each of them
+# oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _projected(seed, n=400, spread=1.0):
     sc = make_scene(n=n, seed=seed, spread=spread)

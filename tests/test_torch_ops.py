@@ -24,6 +24,11 @@ from opensplat_tpu_torch.ops import tensor_math as ttm
 from opensplat_tpu_torch.optim import adam as tadam
 from scene_utils import make_scene
 
+# one intra-op thread per process: the suite runs one pytest-xdist
+# worker per core, and a full torch thread pool in each of them
+# oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _close(a, b, tol=1e-5, err_msg=""):
     a = np.asarray(a, np.float64)

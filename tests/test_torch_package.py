@@ -18,9 +18,16 @@ from opensplat_tpu_torch.config import TrainConfig
 from opensplat_tpu_torch.models.gaussians import init_model
 from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
                                                     render_forward)
-from opensplat_tpu_torch.ops.kernels import _lib, expand, raster, segsum
+from opensplat_tpu_torch.ops.kernels import (_lib, expand, raster,
+                                             raster_variants, segsum)
 from opensplat_tpu_torch.ops.kernels.integration import rasterize_fast
-from opensplat_tpu_torch.train import Trainer, train_step
+from opensplat_tpu_torch.tools import kbench_raster
+from opensplat_tpu_torch.train import Trainer, render_image, train_step
+
+# one intra-op thread per process: the suite runs one pytest-xdist
+# worker per core, and a full torch thread pool in each of them
+# oversubscribes the cores
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -100,9 +107,21 @@ def _call_rasterize_fast():
                    torch.zeros((3,)), 16, 16)
 
 
+def _call_render_image():
+    st = _tiny_state()[2]
+    render_image(st.params, st.alive, torch.eye(4), 50.0, 50.0, 16.0, 16.0,
+                 32, 32, 0)
+
+
+def _call_kbench():
+    kbench_raster.main(["--tiles", "2", "--per-tile", "10", "--tb-x", "2",
+                        "--iters", "1"])
+
+
 @pytest.mark.parametrize("call", [_call_init_model, _call_trainer,
                                   _call_train_step, _call_render_forward,
-                                  _call_rasterize_fast])
+                                  _call_rasterize_fast, _call_render_image,
+                                  _call_kbench])
 def test_entry_points_default_to_cuda(no_cuda, call):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
@@ -160,6 +179,19 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(segsum.segment_sum_sorted(*s_args),
                        segsum.segment_sum_plain(*s_args))
     assert [w.launches for w in wrappers] == before
+
+
+def test_cpu_tensors_take_the_plain_variants():
+    """The ablation bench's wrapper, given CPU tensors, returns its plain
+    version's result for every variant and counts no launch."""
+    before = raster_variants.rasterize_variant.launches
+    st = kbench_raster.make_stream(2, 300, 2, device="cpu")
+    args = kbench_raster.variant_args(st)
+    for name in raster_variants.VARIANTS:
+        for a, b in zip(raster_variants.rasterize_variant(name, *args),
+                        raster_variants.rasterize_variant_plain(name, *args)):
+            assert torch.equal(a, b), name
+    assert raster_variants.rasterize_variant.launches == before
 
 
 def test_kernel_check_refuses_cpu_tensors():

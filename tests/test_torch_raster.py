@@ -20,6 +20,11 @@ from opensplat_tpu_torch.ops.kernels import raster as traster
 from opensplat_tpu_torch.ops.kernels.integration import rasterize_fast
 from scene_utils import make_scene
 
+# one intra-op thread per process: the suite runs one pytest-xdist
+# worker per core, and a full torch thread pool in each of them
+# oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _setup(n, seed, height=None, width=None):
     s = make_scene(n=n, seed=seed)

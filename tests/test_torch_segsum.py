@@ -15,6 +15,11 @@ from opensplat_tpu.ops.pallas.raster import pack_bf16_pair
 from opensplat_tpu.ops.pallas.segsum import pallas_segment_sum
 from opensplat_tpu_torch.ops.kernels import segsum as tseg
 
+# one intra-op thread per process: the suite runs one pytest-xdist
+# worker per core, and a full torch thread pool in each of them
+# oversubscribes the cores
+torch.set_num_threads(1)
+
 
 def _bf16(x):
     return torch.from_numpy(x).to(torch.bfloat16).to(torch.float32).numpy()

@@ -18,7 +18,6 @@ to a full step, and such rows are held to two steps' length."""
 import numpy as np
 import jax
 import jax.numpy as jnp
-import pytest
 import torch
 
 from opensplat_tpu.config import TrainConfig as JConfig
@@ -32,6 +31,11 @@ from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
                                                     render_forward)
 from opensplat_tpu_torch.optim.adam import BETA1
 from opensplat_tpu_torch.train import Trainer, train_step_impl
+
+# one intra-op thread per process: the suite runs one pytest-xdist
+# worker per core, and a full torch thread pool in each of them
+# oversubscribes the cores
+torch.set_num_threads(1)
 
 H = W = 64
 N, CAP = 300, 320
@@ -177,10 +181,18 @@ def test_trainer_steps_and_demand():
 
 
 def test_trainer_refine_boundary_raises():
+    """The refine boundary, which raised NotImplementedError before refine
+    was ported, now refines: step 2 of refine_every=2 resets alpha (its
+    step % reset_interval == refine_every) and clears the stats."""
     tr = _trainer(warmup_length=1, refine_every=2)
     tr.run_step(1)
-    with pytest.raises(NotImplementedError, match="next port slice"):
-        tr.run_step(2)
+    tr.run_step(2)
+    assert tr.refine_metrics == {"n_alive": N}
+    reset_logit = float(np.log(np.float32(0.2) / np.float32(0.8)))
+    assert float(tr.state.params.opacities.max()) <= reset_logit + 1e-6
+    assert not bool(tr.state.stats.initialized)
+    assert not tr.state.stats.vis_counts.any()
+    assert not tr.state.opt.mu["opacities"].any()
 
 
 def test_init_model_matches_jax():
