@@ -6,20 +6,33 @@ Run from the repository root on a machine with one CUDA card:
     python3 chip_smoke.py
 
 Phases (any failure raises and the script exits non-zero):
-  1. print the card's name and power limit (nvidia-smi) and build the
+  1. print the card's name and power limit (nvidia-smi), build the
      CUDA kernels from opensplat_tpu_torch/csrc into opensplat_tpu_torch/
-     _build/ (timed);
+     _build/ (timed), and print the backward kernel's chunk size K,
+     registers, shared memory and resident CTAs per SM (CUDA runtime);
   2. hold each kernel against its plain PyTorch version on the card, on
-     the 16384-Gaussian 256 px scene of bench.py;
+     the 16384-Gaussian 256 px scene of bench.py and at 250 px (tiles
+     padded past the image's edge), raster_bwd also against the direct
+     nine-term sums in float64 (as in every such check below), and the
+     segment sum on segments of 0 to 6000 rows;
   3. train the bench.py headline model through Trainer.run_step: 131072
      Gaussians from init_model, 512x512, SH degree 3 from step 3, three
      cameras, 20 steps. Every loss must be finite, the last below the
      first, and each kernel's launch counter must advance once per step.
-     The kernels are timed with CUDA events over the last 10 steps;
+     The kernels are timed with CUDA events around each launch over the
+     last 10 steps (the table's ms, the median; it holds the host's
+     launch gap) and by torch.profiler over three more steps (the
+     table's device_ms: device time per recorded launch, printed with
+     the launches the trace recorded);
   4. at the main path's shapes (the trained state, camera 0) hold each
-     kernel against its plain version again, time the plain versions and
-     segment sum's library yardstick (index_add_, never called by the
-     port), and compute each kernel's bound from this run's data;
+     kernel against its plain version again; run raster_bwd then
+     segment_sum twice and require bitwise-equal sums; time the plain
+     versions and segment sum's library yardsticks (torch.segment_reduce
+     and index_add_, never called by the port; by CUDA events, the
+     table's library_ms is the faster; device time printed beside);
+     print the tile balance (records replayed per tile: max, p50, p99,
+     and raster_bwd on the longest tile alone against all); and compute
+     each kernel's bound from this run's data;
   5. refine on the card: a fresh 131072-Gaussian 512 px SH 3 model from
      the same scene at capacity = point count, 60 steps of
      Trainer.run_step with warmup 20, refine every 10 and an alpha reset
@@ -77,6 +90,12 @@ KERNELS = {
     "kbench_fwd": ("opensplat_tpu_torch/csrc/raster_fwd_variants.cu",
                    "tools/kbench_raster.py:74"),
 }
+
+
+# each kernel's __global__ function, as the profiler names it
+KERNEL_FUNCS = {"expand": "expand_kernel", "raster_fwd": "raster_fwd_kernel",
+                "raster_bwd": "raster_bwd_kernel", "segsum": "segsum_kernel",
+                "kbench_fwd": "kbench_fwd_kernel"}
 
 
 class Camera:
@@ -158,7 +177,8 @@ def stage_inputs(state, cam, sh_deg, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
         v_img = torch.randn((h, w, 3), generator=gen, device=dev)
         v_ft = torch.randn((h, w), generator=gen, device=dev)
-        bwd_args = fwd_args[:8] + (final_t, fidx, v_img, v_ft, h, w)
+        bwd_args = fwd_args[:8] + (final_t, fidx, v_img, v_ft,
+                                   binned.cand_index, h, w)
     return dict(expand=expand_args, fwd=fwd_args, bwd=bwd_args,
                 binned=binned, fidx=fidx, img=img)
 
@@ -206,10 +226,21 @@ def check_kernels(inp, label):
                 f"[{label}] raster_bwd: {int(bad.sum())} of {bad.numel()} "
                 f"gradient values outside rtol 1e-3, atol 1e-5*max|g|")
         errs["raster_bwd"] = float((g_k - g_p).abs().max())
+        # the moment form shared by kernel and plain version, against the
+        # direct nine-term sums in float64, at the same tolerance
+        g_d = raster.rasterize_backward_direct(*inp["bwd"])
+        scale = float(g_d.abs().max()) + 1e-30
+        diff = (g_k.double() - g_d).abs()
+        bad = diff > 1e-3 * g_d.abs() + 1e-5 * scale
+        if bool(bad.any()):
+            raise AssertionError(
+                f"[{label}] raster_bwd: {int(bad.sum())} of {bad.numel()} "
+                f"gradient values outside rtol 1e-3, atol 1e-5*max|g| of "
+                f"the direct float64 sums")
+        errs["raster_bwd_direct"] = float(diff.max())
 
-        perm, off = segsum.gid_order(b.gauss_ids, b.isect_counts)
-        args = (perm, off, b.isect_counts.contiguous(), g_k)
-        s_k = segsum.segment_sum_sorted(*args)
+        args = (g_k, b.cand_start, b.cand_count)
+        s_k = segsum.segment_sum(*args)
         s_p = segsum.segment_sum_plain(*args)
         sc = float(s_p.abs().max()) + 1e-30
         bad = (s_k - s_p).abs() > 1e-5 * s_p.abs() + 1e-6 * sc
@@ -223,34 +254,70 @@ def check_kernels(inp, label):
     return errs, g_k
 
 
-def profile_steps(trainer, first_step, n, step_ms):
-    """Where a step's device time goes: torch.profiler over n more steps,
-    device time per step by kernel, and the device's busy share of the
-    unprofiled steady step time `step_ms`."""
+def device_rows(fn, n):
+    """[(kernel name, device ms per recorded launch, launches recorded)]
+    of n calls of `fn` under torch.profiler, by time per call: each
+    kernel's own duration on the card, free of the host's launch gaps."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for step in range(first_step, first_step + n):
-            trainer.run_step(step)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-    # kernels only: an operator's row repeats its kernels' device time
-    rows = [(e.key, e.self_device_time_total / 1e3 / n)
+    # kernels only: an operator's row repeats its kernels' device time.
+    # Times are per recorded launch: the trace has missed launches in
+    # back-to-back loops, so callers print the recorded count beside them
+    rows = [(e.key, e.self_device_time_total / 1e3 / e.count, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    return sorted(rows, key=lambda r: -r[1] * r[2])
+
+
+def device_ms(fn, reps, kernel=None):
+    """(device ms per call of `fn`, launches recorded) by torch.profiler
+    over `reps` calls after one warm-up: the kernels whose name holds
+    `kernel`, or all it launches, each at its time per recorded launch
+    times its launches per call. (None, 0) if the trace recorded none."""
+    fn()
+    rows = [r for r in device_rows(fn, reps)
+            if kernel is None or kernel in r[0]]
+    if not rows:
+        return None, 0
+    return (sum(t * max(1, round(k / reps)) for _, t, k in rows),
+            sum(k for _, _, k in rows))
+
+
+def profile_steps(trainer, first_step, n, step_ms):
+    """Where a step's device time goes: torch.profiler over n more steps,
+    device time per step by kernel, and the device's busy share of the
+    unprofiled steady step time `step_ms`. Returns {kernel: (device ms
+    per recorded launch, launches recorded)} for the port's kernels the
+    trace recorded."""
+    step = [first_step]
+
+    def one():
+        trainer.run_step(step[0])
+        step[0] += 1
+
+    traced = device_rows(one, n)
+    rows = [(key, t * k / n) for key, t, k in traced]
     busy = sum(ms for _, ms in rows)
     if busy == 0:
         print("step profile: device time not measured (no CUDA events)")
-        return
+        return {}
     print(f"step profile: device busy {busy:.3f} ms of a {step_ms:.3f} ms "
           f"step ({100 * busy / step_ms:.1f}%, idle "
           f"{100 * (1 - busy / step_ms):.1f}%); top kernels, ms/step:")
     for key, ms in rows[:15]:
         print(f"  {ms:8.4f}  {key[:90]}")
+    # the port's kernels launch once a step
+    return {k: (t, c) for k, fn_name in KERNEL_FUNCS.items()
+            for key, t, c in traced if fn_name in key}
 
 
 def time_ms(fn, reps):
@@ -297,7 +364,7 @@ def bounds(inp, peak_bw, peak_ops):
         "raster_bwd": (table + replay * 4 + n_tiles * 8 + h * w * 20
                        + n_tiles * 256 * 4 + replay * 36,
                        pairs * OPS_PER_PAIR_BWD),
-        "segsum": (n_isect * 44 + c * 12 + c * 36,
+        "segsum": (n_isect * 36 + c * 12 + c * 36,
                    n_isect * OPS_PER_RECORD_SUM),
     }
     out = {}
@@ -306,6 +373,131 @@ def bounds(inp, peak_bw, peak_ops):
         to = ops / peak_ops * 1e3
         out[k] = (max(tb, to), "bytes" if tb >= to else "operations")
     return out
+
+
+def check_segsum_segments():
+    """The segment sum against its plain version on segments of every
+    kind: empty, short (one lane each), longer than a warp's 32 rows
+    (summed by the whole warp) up to 6000 rows, lying between short
+    ones. Random rows, a seeded generator; the tolerance of
+    check_kernels."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels import segsum
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    counts = torch.randint(0, 12, (4099,), generator=gen, device="cuda")
+    for g, n in ((5, 6000), (6, 33), (40, 32), (41, 500), (4098, 77)):
+        counts[g] = n
+    counts = counts.to(torch.int32)
+    starts = torch.cumsum(counts.long(), 0) - counts.long()
+    rows = torch.randn((int(counts.sum()), 9), generator=gen, device="cuda")
+    s_k = segsum.segment_sum(rows, starts, counts)
+    s_p = segsum.segment_sum_plain(rows, starts, counts)
+    sc = float(s_p.abs().max())
+    bad = (s_k - s_p).abs() > 1e-5 * s_p.abs() + 1e-6 * sc
+    if bool(bad.any()):
+        raise AssertionError(f"segsum on long segments: {int(bad.sum())} "
+                             "values outside rtol 1e-5, atol 1e-6*max|s|")
+    print("segsum on segments of 0-6000 rows agrees with its plain version: "
+          f"max err {float((s_k - s_p).abs().max())}", flush=True)
+
+
+def check_determinism(inp):
+    """raster_bwd followed by segment_sum, twice on the same inputs: the
+    (C, 9) sums must be bitwise equal."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels import raster, segsum
+
+    b = inp["binned"]
+    with torch.no_grad():
+        runs = [segsum.segment_sum(raster.rasterize_backward(*inp["bwd"]),
+                                   b.cand_start, b.cand_count)
+                for _ in range(2)]
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError(
+            f"raster_bwd -> segment_sum not deterministic: "
+            f"{int((runs[0] != runs[1]).sum())} of {runs[0].numel()} sums "
+            f"differ between two runs")
+    print("determinism: raster_bwd -> segment_sum run twice, the (C, 9) "
+          "sums are bitwise equal", flush=True)
+
+
+def tile_balance(inp):
+    """Records each tile replays in the backward (to its last pixel's
+    stop): max, p50, p99 and mean; and the backward's device time
+    (torch.profiler, 10 calls each, with the launches recorded) with
+    every tile but the longest emptied, against its time on all tiles:
+    near it, the longest tile sets the kernel's time."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels import raster
+
+    b = inp["binned"]
+    per_tile = raster._pixel_replay(b.tile_start, b.tile_end,
+                                    inp["fidx"]).amax(1).double()
+    q = torch.quantile(per_tile, torch.tensor(
+        [0.5, 0.99], dtype=torch.float64, device=per_tile.device))
+    longest = int(per_tile.argmax())
+    only = torch.where(torch.arange(per_tile.numel(), device=per_tile.device)
+                       == longest, b.tile_end, b.tile_start).contiguous()
+    args = list(inp["bwd"])
+    args[2] = only
+    with torch.no_grad():
+        alone = device_ms(lambda: raster.rasterize_backward(*args), 10,
+                          KERNEL_FUNCS["raster_bwd"])
+        every = device_ms(lambda: raster.rasterize_backward(*inp["bwd"]),
+                          10, KERNEL_FUNCS["raster_bwd"])
+    out = dict(tiles=per_tile.numel(), max=int(per_tile.max()),
+               p50=float(q[0]), p99=float(q[1]),
+               mean=float(per_tile.mean()),
+               nonempty=int((per_tile > 0).sum()),
+               longest_tile_alone_ms=alone[0], recorded_alone=alone[1],
+               raster_bwd_ms=every[0], recorded_all=every[1])
+    print("tile balance (records replayed per tile, main path; device ms "
+          "of raster_bwd on the longest tile alone and on all): "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def segsum_yardsticks(inp, rows):
+    """The segment sum's library yardsticks on the main path's rows, each
+    one PyTorch call the port never makes: torch.segment_reduce on the
+    Gaussian-order rows, and index_add_ of the stream-order rows by
+    gauss_id into a zeroed (C, 9). Also the whole reduction path from the
+    rows to the (C, 9) sums, which is the segment-sum kernel alone (no
+    sort). Each call timed by CUDA events (median of 20, the method of
+    library_ms) and by torch.profiler (device time of every kernel it
+    launches, 20 calls, with the launches recorded). Returns {call:
+    events ms}."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels import segsum
+
+    b = inp["binned"]
+    c = b.cand_count.shape[0]
+    n_isect = int(b.n_isects)
+    lengths = b.cand_count.long()
+    stream_rows = rows[b.cand_index.long()][:n_isect].contiguous()
+    gids = b.gauss_ids[:n_isect].long()
+    calls = {
+        "segment_reduce": lambda: torch.segment_reduce(
+            rows, "sum", lengths=lengths, axis=0, unsafe=True),
+        "index_add_": lambda: torch.zeros(
+            (c, 9), device=rows.device).index_add_(0, gids, stream_rows),
+        "reduction_path": lambda: segsum.segment_sum(
+            rows, b.cand_start, b.cand_count),
+    }
+    events = {k: time_ms(fn, 20) for k, fn in calls.items()}
+    device = {k: device_ms(fn, 20) for k, fn in calls.items()}
+    print("segsum yardsticks, ms per call: CUDA events (median of 20) "
+          + json.dumps(events) + "; device (torch.profiler, 20 calls: ms, "
+          "launches recorded) " + json.dumps(device) + "; with its sort of "
+          "gauss_ids the reduction path (rows -> (C, 9)) took ~0.16 ms "
+          "(PERF.md §6: sort ~0.11 device + segsum 0.0529 by events)",
+          flush=True)
+    return events
 
 
 def refine_phase(n_points, size, n_steps, device):
@@ -348,7 +540,7 @@ def refine_phase(n_points, size, n_steps, device):
 
     trainer._refine = timed_refine
     wrappers = (expand.expand, raster.rasterize_forward,
-                raster.rasterize_backward, segsum.segment_sum_sorted)
+                raster.rasterize_backward, segsum.segment_sum)
     for fn in wrappers:
         fn.launches = 0
     losses = []
@@ -520,13 +712,20 @@ def main():
     for line in _lib.build_log.splitlines():
         if "registers" in line or line.startswith("---"):
             print("  " + line.strip())
+    print("raster_bwd build (CUDA runtime): "
+          + json.dumps(raster.backward_kernel_info()), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # phase 2: kernels against plain versions on the 16384 / 256 px scene
-    st16, cams16 = make_scene(16384, 256, 0, "cuda")
-    check_kernels(stage_inputs(st16, cams16[0], 3, 1), "16384 g, 256 px")
+    # phase 2: kernels against plain versions on the 16384 / 256 px scene,
+    # again at 250 px (tiles padded past the image's edge), and the
+    # segment sum on segments long enough for its whole-warp path
+    for size in (256, 250):
+        st16, cams16 = make_scene(16384, size, 0, "cuda")
+        check_kernels(stage_inputs(st16, cams16[0], 3, 1),
+                      f"16384 g, {size} px")
     del st16, cams16
+    check_segsum_segments()
 
     # phase 3: training through the normal entry point at full width
     from opensplat_tpu_torch.config import TrainConfig
@@ -539,7 +738,7 @@ def main():
     wrappers = {"expand": expand.expand,
                 "raster_fwd": raster.rasterize_forward,
                 "raster_bwd": raster.rasterize_backward,
-                "segsum": segsum.segment_sum_sorted}
+                "segsum": segsum.segment_sum}
     n_steps = 20
     for fn in wrappers.values():
         fn.launches = 0
@@ -579,7 +778,14 @@ def main():
         {k: int(metrics[k]) for k in ("n_cands", "n_isects", "n_grads")}))
     print("kernel ms per step (median of the last 10, CUDA events): "
           + json.dumps({k: round(v, 4) for k, v in kernel_ms.items()}))
-    profile_steps(trainer, n_steps + 1, 3, 1e3 / steps_per_s)
+    missing = set(wrappers) - set(kernel_ms)
+    if missing:
+        raise AssertionError(f"no CUDA-event time for {sorted(missing)}")
+    # the table's device_ms: each kernel's device time per recorded
+    # launch (one launch a step), without the host's launch gap
+    dev_ms = profile_steps(trainer, n_steps + 1, 3, 1e3 / steps_per_s)
+    print("kernel device ms per launch (torch.profiler, 3 steps: ms, "
+          "launches recorded): " + json.dumps(dev_ms), flush=True)
 
     # phase 4: main-path shapes — agreement, plain and library times, bounds
     inp = stage_inputs(trainer.state, cams[0], 3, 2)
@@ -587,9 +793,9 @@ def main():
             torch.isfinite(inp["img"]).all()):
         raise AssertionError("rendered image: wrong shape or nonfinite")
     errs, g_rec = check_kernels(inp, "131072 g, 512 px (main path)")
+    check_determinism(inp)
     b = inp["binned"]
-    perm, off = segsum.gid_order(b.gauss_ids, b.isect_counts)
-    sargs = (perm, off, b.isect_counts.contiguous(), g_rec)
+    sargs = (g_rec, b.cand_start, b.cand_count)
     plain = {
         "expand": lambda: expand.expand_plain(*inp["expand"]),
         "raster_fwd": lambda: raster.rasterize_forward_plain(*inp["fwd"]),
@@ -597,13 +803,9 @@ def main():
         "segsum": lambda: segsum.segment_sum_plain(*sargs),
     }
     plain_ms = {k: time_ms(fn, 5) for k, fn in plain.items()}
-    n_isect = int(b.n_isects)
-    valid = b.gauss_ids[:n_isect].long()
-    rec = g_rec[:n_isect]
-    c = b.isect_counts.shape[0]
-    library_ms = time_ms(
-        lambda: torch.zeros((c, 9), device="cuda").index_add_(0, valid, rec),
-        20)
+    yard = segsum_yardsticks(inp, g_rec)
+    library_ms = min(yard["segment_reduce"], yard["index_add_"])
+    tile_balance(inp)
     bnd = bounds(inp, *peak)
 
     # phase 5: refine past warm-up on the card, then the kernels against
@@ -637,6 +839,11 @@ def main():
     bnd["kbench_fwd"] = kbench_bound(stream, fidx_full, *peak)
     plain_ms["kbench_fwd"] = time_ms(
         lambda: raster_variants.rasterize_variant_plain("full", *vargs), 3)
+    dev_ms["kbench_fwd"] = device_ms(
+        lambda: raster_variants.rasterize_variant("full", *vargs), 10,
+        KERNEL_FUNCS["kbench_fwd"])
+    print("kbench_fwd full: device ms per call, launches recorded "
+          f"{dev_ms['kbench_fwd']} (torch.profiler, 10 calls)", flush=True)
     kernel_ms["kbench_fwd"] = bench["full"][0]
     errs["kbench_fwd"] = v_errs["full"]
 
@@ -648,11 +855,13 @@ def main():
             "ms": kernel_ms[k], "plain_ms": plain_ms[k],
             "bound_ms": bnd[k][0], "bound_by": bnd[k][1],
             "library_ms": library_ms if k == "segsum" else None,
+            "device_ms": dev_ms.get(k, (None,))[0],
         })
     for row in table:
-        print(f"  {row['name']:<10} {row['ms']:.4f} ms  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})  plain "
-              f"{row['plain_ms']:.3f} ms  launches {row['launches']}")
+        print(f"  {row['name']:<10} {row['ms']:.4f} ms  device "
+              f"{row['device_ms']} ms  bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})  plain {row['plain_ms']:.3f} ms  "
+              f"launches {row['launches']}")
     print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
     if "jax" in sys.modules or "opensplat_tpu" in sys.modules:
         raise AssertionError("jax or opensplat_tpu was imported")

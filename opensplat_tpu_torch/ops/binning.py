@@ -12,6 +12,12 @@ depth_bits. The candidate stream is Gaussian-major, so stable order among
 equal keys is ascending Gaussian id: the same order as the JAX package's
 3-key (tile, depth, gid) sort. Culled rows carry the sentinel key and
 sort to the tail, past every tile's range.
+
+The sort's permutation is kept as `cand_index`: stream position i holds
+candidate row cand_index[i], and Gaussian g's candidate rows are
+cand_start[g] .. cand_start[g] + cand_count[g]. The backward writes each
+record's gradient row at its candidate row, so the per-Gaussian segment
+sum reads contiguous segments and needs no second sort.
 """
 from __future__ import annotations
 
@@ -31,6 +37,9 @@ class BinnedGaussians(NamedTuple):
     n_isects: torch.Tensor  # () int64 kept intersections (post-cull)
     n_cands: int  # candidate rows (tile-bbox pairs) = I
     isect_counts: torch.Tensor  # (C,) int32 kept rows per Gaussian
+    cand_index: torch.Tensor  # (I,) int32 candidate row of stream position
+    cand_start: torch.Tensor  # (C,) int64 first candidate row per Gaussian
+    cand_count: torch.Tensor  # (C,) int32 candidate rows per Gaussian
 
 
 def num_tiles(height: int, width: int):
@@ -82,4 +91,7 @@ def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
         n_isects=torch.sum(kept.long()),
         n_cands=total,
         isect_counts=kept,
+        cand_index=perm.to(torch.int32),
+        cand_start=starts,
+        cand_count=cnt,
     )

@@ -4,7 +4,7 @@ its plain PyTorch version and launch counter:
   expand.expand ........................ candidate expansion + cull
   raster.rasterize_forward ............. tile compositing, forward
   raster.rasterize_backward ............ tile replay, per-record gradients
-  segsum.segment_sum_sorted ............ per-Gaussian gradient sums
+  segsum.segment_sum ................... per-Gaussian gradient sums
   raster_variants.rasterize_variant .... the forward with pieces ablated
                                          (the ablation bench's kernel)
 """

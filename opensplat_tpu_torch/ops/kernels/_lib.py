@@ -116,10 +116,11 @@ _SIGNATURES = {
     "osk_raster_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
                        ctypes.c_int),
-    "osk_raster_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 12
+    "osk_raster_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 13
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
                        ctypes.c_int),
-    "osk_segsum": ([ctypes.c_int] + [ctypes.c_void_p] * 6, ctypes.c_int),
+    "osk_raster_bwd_info": ([ctypes.c_void_p], ctypes.c_int),
+    "osk_segsum": ([ctypes.c_int] + [ctypes.c_void_p] * 5, ctypes.c_int),
     "osk_kbench_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] + [ctypes.c_void_p] * 3,

@@ -4,9 +4,12 @@ Counterpart of opensplat_tpu/ops/pallas/integration.py::rasterize_pallas
 with the same contract: (img, final_t[, n_isects, n_grads]) and
 gradients for xys, conics, colors, opacities and background. Binning
 (expansion kernel + sort) runs without gradient; the forward kernel
-renders; the backward kernel writes one gradient row per record, and the
-segment-sum kernel reduces them per Gaussian. Streams are sized exactly,
-so there are no budgets to overflow.
+renders; the backward kernel writes one gradient row per record at the
+record's candidate row (`cand_index`, the tile sort's permutation), so
+each Gaussian's rows are one contiguous segment of the Gaussian-major
+candidate layout, and the segment-sum kernel reduces them per Gaussian
+with no second sort. Streams are sized exactly, so there are no budgets
+to overflow.
 """
 from __future__ import annotations
 
@@ -22,15 +25,17 @@ from .segsum import segment_sum
 class _RasterizeBinned(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xys, conics, colors, opac, background, gauss_ids,
-                tile_start, tile_end, kept, height, width):
+                tile_start, tile_end, cand_index, cand_start, cand_count,
+                height, width):
         args = [t.detach().to(torch.float32).contiguous()
                 for t in (xys, conics, opac, colors, background)]
         img, final_t, fidx = rasterize_forward(
             gauss_ids, tile_start, tile_end, args[0], args[1], args[2],
             args[3], args[4], height, width)
         _, n_grads = compact_grad_layout(tile_start, tile_end, fidx)
-        ctx.save_for_backward(*args, gauss_ids, tile_start, tile_end, kept,
-                              final_t, fidx)
+        ctx.save_for_backward(*args, gauss_ids, tile_start, tile_end,
+                              cand_index, cand_start, cand_count, final_t,
+                              fidx)
         ctx.hw = (height, width)
         ctx.mark_non_differentiable(n_grads)
         return img, final_t, n_grads
@@ -38,7 +43,8 @@ class _RasterizeBinned(torch.autograd.Function):
     @staticmethod
     def backward(ctx, v_img, v_ft, _v_n):
         (xys, conics, opac, colors, background, gauss_ids, tile_start,
-         tile_end, kept, final_t, fidx) = ctx.saved_tensors
+         tile_end, cand_index, cand_start, cand_count, final_t,
+         fidx) = ctx.saved_tensors
         height, width = ctx.hw
         if v_img is None:
             v_img = torch.zeros((height, width, 3), device=xys.device)
@@ -46,13 +52,14 @@ class _RasterizeBinned(torch.autograd.Function):
             v_ft = torch.zeros((height, width), device=xys.device)
         v_img = v_img.to(torch.float32).contiguous()
         v_ft = v_ft.to(torch.float32).contiguous()
-        grads = rasterize_backward(
+        rows = rasterize_backward(
             gauss_ids, tile_start, tile_end, xys, conics, opac, colors,
-            background, final_t, fidx, v_img, v_ft, height, width)
-        acc = segment_sum(gauss_ids, kept, grads)
+            background, final_t, fidx, v_img, v_ft, cand_index, height,
+            width)
+        acc = segment_sum(rows, cand_start, cand_count)
         v_bg = torch.einsum("hw,hwc->c", final_t, v_img)
         return (acc[:, 0:2], acc[:, 2:5], acc[:, 6:9], acc[:, 5], v_bg,
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None, None)
 
 
 def rasterize_fast(
@@ -91,7 +98,8 @@ def rasterize_fast(
     img, final_t, n_grads = _RasterizeBinned.apply(
         xys, conics, colors, opac, background.to(torch.float32),
         binned.gauss_ids, binned.tile_start, binned.tile_end,
-        binned.isect_counts, height, width)
+        binned.cand_index, binned.cand_start, binned.cand_count, height,
+        width)
     if return_isects:
         return img, final_t, binned.n_isects, n_grads
     return img, final_t

@@ -4,11 +4,16 @@ Replaces opensplat_tpu/ops/pallas/raster.py::_fwd_kernel
 (pallas_rasterize_forward) and ::_bwd_kernel (pallas_rasterize_backward).
 CUDA sources: csrc/raster_fwd.cu and csrc/raster_bwd.cu — one CTA per
 16x16 tile, records gathered by gauss_id into shared memory; bound by the
-(pixel, record) arithmetic and, in the backward, the per-record CTA
-reduction (see the source notes). `rasterize_forward_plain` and
-`rasterize_backward_plain` are the same functions in plain PyTorch,
-record by record over all tiles at once in the kernels' order and
-arithmetic; the wrappers take them only for CPU tensors.
+(pixel, record) arithmetic (see the source notes). The backward replays
+records in chunks of 32 and reduces each record's nine gradient
+sums as moments of v_sigma and fac over the tile's pixels, recombined in
+tile-local coordinates (`moment_terms`), as the JAX kernel does.
+`rasterize_forward_plain` and `rasterize_backward_plain` are the same
+functions in plain PyTorch, record by record over all tiles at once in
+the kernels' order and arithmetic (the backward's moments included); the
+wrappers take them only for CPU tensors. `rasterize_backward_direct`
+takes the nine sums term by term in float64: the reference that the
+moment form is held to.
 
 Semantics (opensplat_tpu/ops/rasterize.py, reference forward.cu and
 backward.cu): alpha = min(0.999, op * exp(-sigma)) with records below
@@ -17,9 +22,13 @@ T * (1 - alpha) <= 1e-4, which is not composited and whose stream index
 is the pixel's final_idx (2^30 when it never stops). The backward replays
 back to front from final_idx, recovers T by division with the 0.99
 clamp, zeroes nonfinite per-record sums, and writes one (9,) row per
-record: v_x, v_y, v_A, v_B, v_C, v_opacity, v_r, v_g, v_b.
+record — v_x, v_y, v_A, v_B, v_C, v_opacity, v_r, v_g, v_b — at the row
+`out_index` gives it: the record's candidate row, so that each
+Gaussian's rows lie contiguous for the segment sum.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -181,18 +190,62 @@ def compact_grad_layout(tile_start, tile_end, final_idx):
     return (ccum - sizes).to(torch.int32), ccum[-1]
 
 
+def _moment_features(device):
+    """(256, 6) per-pixel features [1, qx, qy, qx^2, qy^2, qx*qy], qx and
+    qy the pixel's offset from its tile's centre (the same for every
+    tile)."""
+    p = torch.arange(PIX, device=device)
+    qx = (p % BLOCK_X).to(torch.float32) - 0.5 * (BLOCK_X - 1)
+    qy = (p // BLOCK_X).to(torch.float32) - 0.5 * (BLOCK_Y - 1)
+    return torch.stack([torch.ones_like(qx), qx, qy, qx * qx, qy * qy,
+                        qx * qy], 1)
+
+
+def _tile_centres(n_tiles, tb_x, device):
+    t = torch.arange(n_tiles, device=device)
+    tcx = ((t % tb_x) * BLOCK_X).to(torch.float32) + 0.5 * (BLOCK_X - 1)
+    tcy = ((t // tb_x) * BLOCK_Y).to(torch.float32) + 0.5 * (BLOCK_Y - 1)
+    return tcx[:, None], tcy[:, None]  # (T, 1)
+
+
+def moment_terms(m, x, y, A, B, C, op, tcx, tcy):
+    """The nine gradient terms (..., 9) of a record from its pixel
+    moments m (..., 9) = [m0, m_x, m_y, m_xx, m_yy, m_xy] of v_sigma and
+    [g_r, g_g, g_b] of fac, recombined in tile-local coordinates
+    (dx = xr - qx): the JAX kernel's algebra (raster.py, _BWD_MOMENTS).
+    Nonfinite terms are 0."""
+    m0, mx, my, mxx, myy, mxy = (m[..., j] for j in range(6))
+    xr = x - tcx
+    yr = y - tcy
+    sx = xr * m0 - mx  # sum_p v_sigma dx
+    sy = yr * m0 - my
+    terms = torch.stack([
+        A * sx + B * sy,
+        B * sx + C * sy,
+        0.5 * (xr * xr * m0 - 2.0 * xr * mx + mxx),
+        0.5 * (xr * yr * m0 - xr * my - yr * mx + mxy),
+        0.5 * (yr * yr * m0 - 2.0 * yr * my + myy),
+        -m0 / torch.clamp(op, min=1e-12),
+        m[..., 6], m[..., 7], m[..., 8],
+    ], dim=-1)
+    return torch.where(torch.isfinite(terms), terms, 0.0)
+
+
 def rasterize_backward_plain(gauss_ids, tile_start, tile_end, xys, conics,
                              opac, colors, background, final_t, final_idx,
-                             v_img, v_ft, height, width):
+                             v_img, v_ft, out_index, height, width):
     """Back to front, record by record over all tiles at once, with the
-    kernel's running T and colour sums; only the sum over a tile's 256
-    pixels is taken in another order."""
+    kernel's running T and colour sums and its moment reduction; only the
+    sums over a tile's 256 pixels are taken in another order (and the
+    kernel's 1 / (1 - alpha) is within an ulp of this division)."""
     tb_x, tb_y = num_tiles(height, width)
     n_tiles = tb_x * tb_y
     dev = xys.device
     n = gauss_ids.shape[0]
     grads = torch.zeros((n, 9), dtype=torch.float32, device=dev)
     px, py = _pixel_coords(n_tiles, tb_x, dev)
+    tcx, tcy = _tile_centres(n_tiles, tb_x, dev)
+    feats = _moment_features(dev)
     inside = (px < width) & (py < height)
     v_out = image_to_tiles(v_img.to(torch.float32), tb_x, tb_y, height, width)
     v_oa = image_to_tiles(v_ft.to(torch.float32), tb_x, tb_y, height, width)
@@ -219,24 +272,72 @@ def rasterize_backward_plain(gauss_ids, tile_start, tile_end, xys, conics,
         alpha = torch.clamp(raw, max=BWD_ALPHA_CLAMP)
         ra = 1.0 / (1.0 - alpha)
         T_k = T_run * ra
+        fac = torch.where(comp, alpha * T_k, 0.0)
+        w = cr * vr + cg * vg + cb * vb
+        v_alpha = T_k * w - ra * (buf_dot + vob)
+        v_sigma = torch.where(comp, -op * vis * v_alpha, 0.0)
+        m = torch.cat([v_sigma @ feats,
+                       torch.einsum("tp,tpc->tc", fac, v_out)], 1)  # (T, 9)
+        terms = moment_terms(m, x[:, 0], y[:, 0], A[:, 0], B[:, 0], C[:, 0],
+                             op[:, 0], tcx[:, 0], tcy[:, 0])
+        grads[out_index[idx[valid]].long()] = terms[valid]
+        buf_dot = torch.where(comp, buf_dot + fac * w, buf_dot)
+        T_run = torch.where(comp, T_k, T_run)
+    return grads
+
+
+def rasterize_backward_direct(gauss_ids, tile_start, tile_end, xys, conics,
+                              opac, colors, background, final_t, final_idx,
+                              v_img, v_ft, out_index, height, width):
+    """The nine gradient sums taken term by term, the reference that the
+    moment form (`moment_terms`, the kernel's and the plain version's
+    algebra) is held to. Per-pixel values, and so every composite
+    decision, in float32 as the kernel computes them; the nine terms and
+    their sums over the pixels in float64. Rows at `out_index`, as
+    rasterize_backward writes them; (I, 9) float64."""
+    tb_x, tb_y = num_tiles(height, width)
+    n_tiles = tb_x * tb_y
+    dev = xys.device
+    n = gauss_ids.shape[0]
+    grads = torch.zeros((n, 9), dtype=torch.float64, device=dev)
+    px, py = _pixel_coords(n_tiles, tb_x, dev)
+    inside = (px < width) & (py < height)
+    tiles = lambda a: image_to_tiles(a, tb_x, tb_y, height, width)
+    v_out, v_oa, T_run = tiles(v_img), tiles(v_ft), tiles(final_t)
+    vr, vg, vb = (v_out[..., j] for j in range(3))
+    vob = T_run * (v_oa + vr * background[0] + vg * background[1]
+                   + vb * background[2])
+    fidx = final_idx.reshape(n_tiles, PIX).long()
+    buf_dot = torch.zeros_like(T_run)
+    counts = (tile_end - tile_start).long()
+    longest = int(counts.max()) if n_tiles and n else 0
+    fields = _fields(xys, conics, opac, colors)
+    d = lambda a: a.double()
+    for k in reversed(range(longest)):
+        idx, valid, (x, y, A, B, C, op, cr, cg, cb) = _records(
+            k, tile_start, tile_end, gauss_ids, fields)
+        dx, dy = x - px, y - py
+        sigma = sigma_at(A, B, C, dx, dy)
+        vis = torch.exp(-sigma)
+        raw = op * vis
+        comp = (valid[:, None] & inside & (idx[:, None] < fidx)
+                & (sigma >= 0.0) & (raw >= ALPHA_THRESH))
+        alpha = torch.clamp(raw, max=BWD_ALPHA_CLAMP)
+        ra = 1.0 / (1.0 - alpha)
+        T_k = T_run * ra
         fac = alpha * T_k
         w = cr * vr + cg * vg + cb * vb
         v_alpha = T_k * w - ra * (buf_dot + vob)
         v_sigma = -op * vis * v_alpha
+        vs, ddx, ddy = d(v_sigma), d(dx), d(dy)
         terms = torch.stack([
-            v_sigma * (A * dx + B * dy),
-            v_sigma * (B * dx + C * dy),
-            0.5 * v_sigma * dx * dx,
-            0.5 * v_sigma * dx * dy,
-            0.5 * v_sigma * dy * dy,
-            vis * v_alpha,
-            fac * vr,
-            fac * vg,
-            fac * vb,
-        ], dim=-1)
-        terms = torch.where(comp[..., None], terms, 0.0).sum(dim=1)  # (T, 9)
+            vs * (d(A) * ddx + d(B) * ddy), vs * (d(B) * ddx + d(C) * ddy),
+            0.5 * vs * ddx * ddx, 0.5 * vs * ddx * ddy, 0.5 * vs * ddy * ddy,
+            d(vis) * d(v_alpha),
+            d(fac) * d(vr), d(fac) * d(vg), d(fac) * d(vb)], -1)
+        terms = torch.where(comp[..., None], terms, 0.0).sum(1)
         terms = torch.where(torch.isfinite(terms), terms, 0.0)
-        grads[idx[valid]] = terms[valid]
+        grads[out_index[idx[valid]].long()] = terms[valid]
         buf_dot = torch.where(comp, buf_dot + fac * w, buf_dot)
         T_run = torch.where(comp, T_k, T_run)
     return grads
@@ -244,14 +345,15 @@ def rasterize_backward_plain(gauss_ids, tile_start, tile_end, xys, conics,
 
 def rasterize_backward(gauss_ids, tile_start, tile_end, xys, conics, opac,
                        colors, background, final_t, final_idx, v_img, v_ft,
-                       height: int, width: int):
-    """Per-record gradients (I, 9) f32, row i for stream record i; rows
-    past a tile's replay limit stay 0."""
+                       out_index, height: int, width: int):
+    """Per-record gradients (I, 9) f32: stream record i's row is written
+    at row out_index[i] (a permutation of [0, I)); rows of records past a
+    tile's replay limit, and of culled candidates, stay 0."""
     if not xys.is_cuda:
         return rasterize_backward_plain(gauss_ids, tile_start, tile_end, xys,
                                         conics, opac, colors, background,
                                         final_t, final_idx, v_img, v_ft,
-                                        height, width)
+                                        out_index, height, width)
     tb_x, tb_y = num_tiles(height, width)
     n_tiles = tb_x * tb_y
     c = xys.shape[0]
@@ -261,6 +363,7 @@ def rasterize_backward(gauss_ids, tile_start, tile_end, xys, conics, opac,
     _lib.check(final_idx, "final_idx", torch.int32, (n_tiles, PIX))
     _lib.check(v_img, "v_img", torch.float32, (height, width, 3))
     _lib.check(v_ft, "v_ft", torch.float32, (height, width))
+    _lib.check(out_index, "out_index", torch.int32, (gauss_ids.shape[0],))
     grads = torch.zeros((gauss_ids.shape[0], 9), dtype=torch.float32,
                         device=xys.device)
     p = _lib.ptr
@@ -268,12 +371,25 @@ def rasterize_backward(gauss_ids, tile_start, tile_end, xys, conics, opac,
         _lib.launch("osk_raster_bwd", n_tiles, p(tile_start), p(tile_end),
                     p(gauss_ids), p(xys), p(conics), p(opac), p(colors),
                     p(background), p(final_t), p(final_idx), p(v_img),
-                    p(v_ft), height, width, tb_x, p(grads))
+                    p(v_ft), p(out_index), height, width, tb_x, p(grads))
     rasterize_backward.launches += 1
     return grads
 
 
 rasterize_backward.launches = 0
+
+
+def backward_kernel_info() -> dict:
+    """The backward kernel's build, from the CUDA runtime: K (records per
+    chunk), registers per thread, shared memory per CTA in bytes and
+    resident CTAs per SM."""
+    out = (ctypes.c_int * 4)()
+    err = _lib.library().osk_raster_bwd_info(
+        ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"opensplat_tpu_torch: osk_raster_bwd_info "
+                           f"failed ({err})")
+    return dict(zip(("K", "registers", "shared_bytes", "ctas_per_sm"), out))
 
 
 def _check_common(gauss_ids, tile_start, tile_end, xys, conics, opac, colors,

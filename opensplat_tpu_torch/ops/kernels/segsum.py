@@ -1,17 +1,16 @@
 """Per-Gaussian segment sum of the per-record gradients (kernel 4).
 
 Replaces opensplat_tpu/ops/pallas/segsum.py::_segsum_kernel
-(pallas_segment_sum). CUDA source: csrc/segsum.cu — one warp per
-Gaussian sums its records through the gid-order permutation in a fixed
-order; bound by bytes (see the source note there). `segment_sum_plain`
-is the same function in plain PyTorch (float64 prefix sums); the wrapper
-takes it only for CPU tensors.
+(pallas_segment_sum). CUDA source: csrc/segsum.cu — a warp per 32
+Gaussians sums each one's contiguous segment of rows in a fixed order;
+bound by bytes (see the source note there). `segment_sum_plain` is the
+same function in plain PyTorch (float64 prefix sums); the wrapper takes
+it only for CPU tensors.
 
-The permutation into Gaussian order is a stable torch.sort of the
-tile-sorted gauss_ids (outside the kernel, as the JAX package's payload
-sort is outside Pallas); Gaussian g's records are positions
-[off[g], off[g] + kept[g]) of it, off being the exclusive cumsum of the
-kept counts. Sentinel ids (C) sort past every segment.
+The rows come in Gaussian order: the backward writes each record's row
+at its candidate row (`BinnedGaussians.cand_index`), and Gaussian g's
+candidate rows are cand_start[g] .. cand_start[g] + cand_count[g]
+(ops/binning.py). Culled candidates are zero rows inside the segments.
 """
 from __future__ import annotations
 
@@ -20,45 +19,35 @@ import torch
 from . import _lib
 
 
-def gid_order(gauss_ids: torch.Tensor, kept: torch.Tensor):
-    """(perm (I,) int64 into Gaussian order, offsets (C,) int64)."""
-    _, perm = torch.sort(gauss_ids, stable=True)
-    offsets = torch.cumsum(kept.long(), 0) - kept.long()
-    return perm, offsets
+def segment_sum_plain(rows, cand_start, cand_count):
+    cols = rows.double().T  # (9, I): scan along rows
+    cs = torch.cat([cols.new_zeros((rows.shape[1], 1)), cols.cumsum(1)], 1)
+    start = cand_start.long()
+    end = start + cand_count.long()
+    return (cs[:, end] - cs[:, start]).T.to(torch.float32)
 
 
-def segment_sum_plain(perm, offsets, kept, grads):
-    n = int(kept.long().sum())
-    cols = grads[perm[:n]].double().T.contiguous()  # (9, n): scan rows
-    cs = torch.cat([cols.new_zeros((grads.shape[1], 1)), cols.cumsum(1)], 1)
-    return (cs[:, offsets + kept.long()] - cs[:, offsets]).T.to(torch.float32)
-
-
-def segment_sum_sorted(perm, offsets, kept, grads):
-    """(C, 9) sums given the Gaussian-order permutation and segments."""
-    if not grads.is_cuda:
-        return segment_sum_plain(perm, offsets, kept, grads)
-    c = kept.shape[0]
-    _lib.check(perm, "perm", torch.int64, (-1,))
-    _lib.check(offsets, "offsets", torch.int64, (c,))
-    _lib.check(kept, "kept", torch.int32, (c,))
-    _lib.check(grads, "grads", torch.float32, (-1, 9))
-    out = torch.empty((c, 9), dtype=torch.float32, device=grads.device)
+def segment_sum(rows, cand_start, cand_count):
+    """Per-Gaussian (C, 9) sums of the rows (I, 9): Gaussian g sums rows
+    cand_start[g] .. cand_start[g] + cand_count[g]. The kernel reads the
+    rows coalesced when the segments are adjacent and in order
+    (cand_start the exclusive cumsum of cand_count), as bin_gaussians
+    makes them."""
+    if not rows.is_cuda:
+        return segment_sum_plain(rows, cand_start, cand_count)
+    c = cand_count.shape[0]
+    _lib.check(rows, "rows", torch.float32, (-1, 9))
+    _lib.check(cand_start, "cand_start", torch.int64, (c,))
+    _lib.check(cand_count, "cand_count", torch.int32, (c,))
+    if rows.data_ptr() % 16:
+        raise ValueError("rows: expected a 16-byte aligned tensor")
+    out = torch.empty((c, 9), dtype=torch.float32, device=rows.device)
     p = _lib.ptr
     with _lib.timed("segsum"):
-        _lib.launch("osk_segsum", c, p(offsets), p(kept), p(perm), p(grads),
+        _lib.launch("osk_segsum", c, p(cand_start), p(cand_count), p(rows),
                     p(out))
-    segment_sum_sorted.launches += 1
+    segment_sum.launches += 1
     return out
 
 
-segment_sum_sorted.launches = 0
-
-
-def segment_sum(gauss_ids, kept, grads):
-    """Per-Gaussian (C, 9) sums of the per-record gradients `grads`
-    (I, 9), record i belonging to Gaussian gauss_ids[i]; `kept` (C,) int32
-    holds each Gaussian's record count."""
-    perm, offsets = gid_order(gauss_ids, kept)
-    return segment_sum_sorted(perm, offsets, kept.contiguous(),
-                              grads.contiguous())
+segment_sum.launches = 0

@@ -141,7 +141,7 @@ def test_cpu_tensors_take_the_plain_versions():
     """Each wrapper, given CPU tensors, returns its plain version's result
     and counts no launch."""
     wrappers = (expand.expand, raster.rasterize_forward,
-                raster.rasterize_backward, segsum.segment_sum_sorted)
+                raster.rasterize_backward, segsum.segment_sum)
     before = [w.launches for w in wrappers]
     rng = np.random.default_rng(0)
     c, h, w = 30, 24, 40
@@ -157,7 +157,7 @@ def test_cpu_tensors_take_the_plain_versions():
     e_args = (cnt, starts, 2 * c, tmin, tmax, depths, xys, conics, s_max, 3, 6)
     for a, b in zip(expand.expand(*e_args), expand.expand_plain(*e_args)):
         assert torch.equal(a, b)
-    keys, gids, kept = expand.expand(*e_args)
+    keys, gids, _ = expand.expand(*e_args)
     order = torch.sort(keys, stable=True).indices
     gauss_ids = gids[order].contiguous()
     edges = torch.searchsorted(keys[order],
@@ -171,12 +171,11 @@ def test_cpu_tensors_take_the_plain_versions():
     for a, b in zip(fk, raster.rasterize_forward_plain(*f_args)):
         assert torch.equal(a, b)
     b_args = f_args[:8] + (fk[1], fk[2], torch.ones((h, w, 3)),
-                           torch.ones((h, w)), h, w)
+                           torch.ones((h, w)), order.int(), h, w)
     g = raster.rasterize_backward(*b_args)
     assert torch.equal(g, raster.rasterize_backward_plain(*b_args))
-    perm, off = segsum.gid_order(gauss_ids, kept)
-    s_args = (perm, off, kept, g)
-    assert torch.equal(segsum.segment_sum_sorted(*s_args),
+    s_args = (g, starts, cnt)
+    assert torch.equal(segsum.segment_sum(*s_args),
                        segsum.segment_sum_plain(*s_args))
     assert [w.launches for w in wrappers] == before
 

@@ -16,8 +16,10 @@ from opensplat_tpu.ops.pallas import raster as jraster
 from opensplat_tpu.ops.pallas.integration import rasterize_pallas
 from opensplat_tpu.ops.projection import project_gaussians as jproject
 from opensplat_tpu.ops.rasterize_tiled import _image_to_tiles, _tiles_to_image
+from opensplat_tpu_torch.ops.binning import bin_gaussians
 from opensplat_tpu_torch.ops.kernels import raster as traster
 from opensplat_tpu_torch.ops.kernels.integration import rasterize_fast
+from opensplat_tpu_torch.ops.projection import ProjectedGaussians
 from scene_utils import make_scene
 
 # one intra-op thread per process: the suite runs one pytest-xdist
@@ -87,6 +89,70 @@ def test_backward_matches_pallas():
         scale = np.abs(b).max() + 1e-12
         np.testing.assert_allclose(a, b, atol=4e-3 * scale, rtol=4e-3,
                                    err_msg=name)
+
+
+def _backward_inputs(n, seed):
+    """The port's binning of a JAX-projected scene, its plain forward, and
+    random cotangents: (binned, backward args without out_index)."""
+    s, h, w, jargs, common, _ = _setup(n, seed)
+    xys, conics, colors, opac = [_t(a) for a in jargs]
+    depths, radii, nth, tmin, tmax = [_t(c) for c in common]
+    proj = ProjectedGaussians(
+        xys=xys, depths=depths, cam_depths=depths, radii=radii,
+        conics=conics, cov2d=conics, num_tiles_hit=nth, tile_min=tmin,
+        tile_max=tmax, mask=radii > 0)
+    b = bin_gaussians(proj, h, w, opac)
+    bg = _t(s["background"])
+    fwd = (b.gauss_ids, b.tile_start, b.tile_end, xys, conics, opac, colors,
+           bg, h, w)
+    _, final_t, fidx = traster.rasterize_forward_plain(*fwd)
+    rng = np.random.default_rng(seed)
+    v_img = torch.from_numpy(rng.normal(size=(h, w, 3)).astype(np.float32))
+    v_ft = torch.from_numpy(rng.normal(size=(h, w)).astype(np.float32))
+    return b, fwd[:8] + (final_t, fidx, v_img, v_ft)
+
+
+def test_backward_rows_land_at_cand_index():
+    """Record i's row lands at row cand_index[i]: gathered back by
+    cand_index the rows equal the stream-order rows exactly, and the
+    culled candidates' rows (the stream's tail past the last tile) are
+    zero."""
+    b, args = _backward_inputs(150, 5)
+    h, w = args[8].shape
+    n = b.gauss_ids.shape[0]
+    stream_rows = traster.rasterize_backward_plain(
+        *args, torch.arange(n, dtype=torch.int32), h, w)
+    rows = traster.rasterize_backward_plain(*args, b.cand_index, h, w)
+    assert torch.equal(rows[b.cand_index.long()], stream_rows)
+    kept = int(b.n_isects)
+    assert 0 < kept < n  # the scene has culled candidates
+    assert int(b.tile_end[-1]) == kept
+    assert not bool(rows[b.cand_index[kept:].long()].any())
+    assert bool(stream_rows[:kept].any())
+    # Gaussian g's rows are its candidate segment
+    assert torch.equal(b.cand_start, torch.cumsum(b.cand_count.long(), 0)
+                       - b.cand_count.long())
+
+
+def test_backward_moments_match_direct():
+    """The plain backward's moment reduction (the kernel's algebra)
+    against the direct nine-term sums in float64, at the card check's
+    tolerance, rtol 1e-3 + atol 1e-5 * max|g|: the moments are float32
+    sums recombined in tile-local coordinates, whose cancellation costs a
+    few float32 ulps of the largest term, far inside it; a wrong sign,
+    factor or tile centre is not."""
+    b, args = _backward_inputs(150, 5)
+    h, w = args[8].shape
+    n = b.gauss_ids.shape[0]
+    rows = torch.arange(n, dtype=torch.int32)
+    got = traster.rasterize_backward_plain(*args, rows, h, w).double()
+    ref = traster.rasterize_backward_direct(*args, rows, h, w)
+    assert bool((ref != 0).any(dim=0).all())  # every term is exercised
+    scale = float(ref.abs().max())
+    bad = (got - ref).abs() > 1e-3 * ref.abs() + 1e-5 * scale
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} of {bad.numel()} values; max err "
+        f"{float((got - ref).abs().max())}, scale {scale}")
 
 
 def test_empty_scene():
