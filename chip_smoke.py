@@ -8,13 +8,15 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit (nvidia-smi), build the
      CUDA kernels from opensplat_tpu_torch/csrc into opensplat_tpu_torch/
-     _build/ (timed), and print the backward kernel's chunk size K,
-     registers, shared memory and resident CTAs per SM (CUDA runtime);
+     _build/ (timed), and print the build of expand, raster_fwd and
+     raster_bwd as the CUDA runtime reports it (records or Gaussians per
+     CTA, registers, shared memory, resident CTAs per SM);
   2. hold each kernel against its plain PyTorch version on the card, on
      the 16384-Gaussian 256 px scene of bench.py and at 250 px (tiles
      padded past the image's edge), raster_bwd also against the direct
-     nine-term sums in float64 (as in every such check below), and the
-     segment sum on segments of 0 to 6000 rows;
+     nine-term sums in float64 (as in every such check below), the
+     segment sum on segments of 0 to 6000 rows, and the expansion on
+     Gaussians that span every tile beside zero-count ones (exact);
   3. train the bench.py headline model through Trainer.run_step: 131072
      Gaussians from init_model, 512x512, SH degree 3 from step 3, three
      cameras, 20 steps. Every loss must be finite, the last below the
@@ -25,14 +27,15 @@ Phases (any failure raises and the script exits non-zero):
      table's device_ms: device time per recorded launch, printed with
      the launches the trace recorded);
   4. at the main path's shapes (the trained state, camera 0) hold each
-     kernel against its plain version again; run raster_bwd then
-     segment_sum twice and require bitwise-equal sums; time the plain
-     versions and segment sum's library yardsticks (torch.segment_reduce
-     and index_add_, never called by the port; by CUDA events, the
-     table's library_ms is the faster; device time printed beside);
-     print the tile balance (records replayed per tile: max, p50, p99,
-     and raster_bwd on the longest tile alone against all); and compute
-     each kernel's bound from this run's data;
+     kernel against its plain version again; run expand twice,
+     raster_fwd twice, and raster_bwd then segment_sum twice, and
+     require bitwise-equal outputs; time the plain versions and segment
+     sum's library yardsticks (torch.segment_reduce and index_add_,
+     never called by the port; by CUDA events, the table's library_ms
+     is the faster; device time printed beside);
+     print the tile balance (records replayed per tile: max, p50, p99;
+     raster_fwd and raster_bwd, each on the longest tile alone against
+     all tiles); and compute each kernel's bound from this run's data;
   5. refine on the card: a fresh 131072-Gaussian 512 px SH 3 model from
      the same scene at capacity = point count, 60 steps of
      Trainer.run_step with warmup 20, refine every 10 and an alpha reset
@@ -375,6 +378,64 @@ def bounds(inp, peak_bw, peak_ops):
     return out
 
 
+def check_expand_stress(size=512, n=1500, seed=5, device="cuda"):
+    """The expansion against its plain version, torch.equal, on the
+    Gaussians that stress a row-parallel kernel: five spanning every tile
+    of a `size` px frame (each more rows than a CTA has threads; two
+    wide enough to keep most of them), a block whose rows are mostly
+    theirs, 60% zero-count Gaussians, two with saturated means (kept
+    without the cull), and small boxes between them. Random fields from
+    a seeded numpy generator."""
+    import torch
+
+    from opensplat_tpu_torch.ops.binning import num_tiles
+    from opensplat_tpu_torch.ops.kernels import expand
+
+    rng = np.random.default_rng(seed)
+    tb_x, tb_y = num_tiles(size, size)
+    tmin = np.stack([rng.integers(0, tb_x, n), rng.integers(0, tb_y, n)], 1)
+    ext = rng.integers(1, 4, (n, 2))
+    tmax = np.minimum(tmin + ext, [tb_x, tb_y])
+    zero = rng.uniform(size=n) < 0.6
+    tmax[zero] = tmin[zero]
+    span = [3, n // 5, n // 5 + 1, n // 5 + 2, n - 1]
+    tmin[span] = 0
+    tmax[span] = [tb_x, tb_y]
+    zero[span] = False
+    cnt = np.prod(tmax - tmin, 1).astype(np.int32)
+    xys = rng.uniform(-20.0, size + 20.0, (n, 2)).astype(np.float32)
+    xys[[7, n // 5 + 1]] = [1e5, -1e5]  # saturated quantised means
+    a = np.exp(rng.uniform(np.log(0.002), np.log(2.0), (n, 2)))
+    rho = rng.uniform(-0.9, 0.9, n)
+    conics = np.stack([a[:, 0], rho * np.sqrt(a[:, 0] * a[:, 1]), a[:, 1]],
+                      1).astype(np.float32)
+    # two wide ones keep most of their rows, the rest cull most
+    conics[span[:2]] = [2e-5, 0.0, 3e-5]
+    xys[span[:2]] = size / 2.0
+    opac = rng.uniform(0.005, 1.0, n).astype(np.float32)
+    s_max = np.log(opac / np.float32(1.0 / 255.0)).astype(np.float32)
+    depths = rng.uniform(0.5, 20.0, n).astype(np.float32)
+    dev = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
+    cnt_t = dev(cnt)
+    starts = (torch.cumsum(cnt_t.long(), 0) - cnt_t.long()).contiguous()
+    args = (cnt_t, starts, int(cnt.sum()), dev(tmin.astype(np.int32)),
+            dev(tmax.astype(np.int32)), dev(depths), dev(xys), dev(conics),
+            dev(s_max), tb_x, tb_x * tb_y)
+    k = expand.expand(*args)
+    q = expand.expand_plain(*args)
+    for name, x, y in zip(("keys", "gids", "kept"), k, q):
+        if not torch.equal(x, y):
+            raise AssertionError(f"expand stress: {name} differ in "
+                                 f"{int((x != y).sum())} places")
+    kept = int(q[2].sum())
+    if not 0 < kept < int(cnt.sum()):
+        raise AssertionError("expand stress: the cull kept all or nothing")
+    print(f"expand stress ({n} Gaussians at {size} px: {len(span)} spanning "
+          f"all {tb_x * tb_y} tiles, {int(zero.sum())} with no rows, "
+          f"{int(cnt.sum())} rows, {kept} kept) equals its plain version",
+          flush=True)
+
+
 def check_segsum_segments():
     """The segment sum against its plain version on segments of every
     kind: empty, short (one lane each), longer than a warp's 32 rows
@@ -404,32 +465,42 @@ def check_segsum_segments():
 
 
 def check_determinism(inp):
-    """raster_bwd followed by segment_sum, twice on the same inputs: the
-    (C, 9) sums must be bitwise equal."""
+    """expand twice, raster_fwd twice, and raster_bwd followed by
+    segment_sum twice, on the same inputs: the keys, gids and kept
+    counts, the image, final T and final_idx, and the (C, 9) sums must be
+    bitwise equal."""
     import torch
 
-    from opensplat_tpu_torch.ops.kernels import raster, segsum
+    from opensplat_tpu_torch.ops.kernels import expand, raster, segsum
 
     b = inp["binned"]
     with torch.no_grad():
+        exp = [expand.expand(*inp["expand"]) for _ in range(2)]
+        fwd = [raster.rasterize_forward(*inp["fwd"]) for _ in range(2)]
         runs = [segsum.segment_sum(raster.rasterize_backward(*inp["bwd"]),
                                    b.cand_start, b.cand_count)
                 for _ in range(2)]
-    if not torch.equal(runs[0], runs[1]):
-        raise AssertionError(
-            f"raster_bwd -> segment_sum not deterministic: "
-            f"{int((runs[0] != runs[1]).sum())} of {runs[0].numel()} sums "
-            f"differ between two runs")
-    print("determinism: raster_bwd -> segment_sum run twice, the (C, 9) "
-          "sums are bitwise equal", flush=True)
+    named = (list(zip(("expand keys", "expand gids", "expand kept"), *exp))
+             + list(zip(("raster_fwd image", "raster_fwd final T",
+                         "raster_fwd final_idx"), *fwd))
+             + [("raster_bwd -> segment_sum sums", *runs)])
+    for name, x, y in named:
+        if not torch.equal(x, y):
+            raise AssertionError(
+                f"not deterministic: {name} differ at {int((x != y).sum())} "
+                f"of {x.numel()} places between two runs")
+    print("determinism: expand, raster_fwd, and raster_bwd -> segment_sum "
+          "each run twice; the keys, gids and kept counts, the image, "
+          "final T and final_idx, and the (C, 9) sums are bitwise equal",
+          flush=True)
 
 
 def tile_balance(inp):
-    """Records each tile replays in the backward (to its last pixel's
-    stop): max, p50, p99 and mean; and the backward's device time
-    (torch.profiler, 10 calls each, with the launches recorded) with
-    every tile but the longest emptied, against its time on all tiles:
-    near it, the longest tile sets the kernel's time."""
+    """Records each tile replays (to its last pixel's stop): max, p50,
+    p99 and mean; and the device time (torch.profiler, 10 calls each,
+    with the launches recorded) of raster_fwd and raster_bwd, each with
+    every tile but the longest emptied against all tiles: near it, the
+    longest tile sets the kernel's time."""
     import torch
 
     from opensplat_tpu_torch.ops.kernels import raster
@@ -442,22 +513,27 @@ def tile_balance(inp):
     longest = int(per_tile.argmax())
     only = torch.where(torch.arange(per_tile.numel(), device=per_tile.device)
                        == longest, b.tile_end, b.tile_start).contiguous()
-    args = list(inp["bwd"])
-    args[2] = only
-    with torch.no_grad():
-        alone = device_ms(lambda: raster.rasterize_backward(*args), 10,
-                          KERNEL_FUNCS["raster_bwd"])
-        every = device_ms(lambda: raster.rasterize_backward(*inp["bwd"]),
-                          10, KERNEL_FUNCS["raster_bwd"])
     out = dict(tiles=per_tile.numel(), max=int(per_tile.max()),
                p50=float(q[0]), p99=float(q[1]),
                mean=float(per_tile.mean()),
-               nonempty=int((per_tile > 0).sum()),
-               longest_tile_alone_ms=alone[0], recorded_alone=alone[1],
-               raster_bwd_ms=every[0], recorded_all=every[1])
+               nonempty=int((per_tile > 0).sum()))
+
+    def alone_and_all(fn, key, kernel):
+        args = list(inp[key])
+        args[2] = only
+        with torch.no_grad():
+            alone = device_ms(lambda: fn(*args), 10, kernel)
+            every = device_ms(lambda: fn(*inp[key]), 10, kernel)
+        return dict(longest_tile_alone_ms=alone[0], recorded_alone=alone[1],
+                    all_tiles_ms=every[0], recorded_all=every[1])
+
+    out["raster_fwd"] = alone_and_all(raster.rasterize_forward, "fwd",
+                                      KERNEL_FUNCS["raster_fwd"])
+    out["raster_bwd"] = alone_and_all(raster.rasterize_backward, "bwd",
+                                      KERNEL_FUNCS["raster_bwd"])
     print("tile balance (records replayed per tile, main path; device ms "
-          "of raster_bwd on the longest tile alone and on all): "
-          + json.dumps(out), flush=True)
+          "of raster_fwd and raster_bwd on the longest tile alone and on "
+          "all): " + json.dumps(out), flush=True)
     return out
 
 
@@ -712,8 +788,11 @@ def main():
     for line in _lib.build_log.splitlines():
         if "registers" in line or line.startswith("---"):
             print("  " + line.strip())
-    print("raster_bwd build (CUDA runtime): "
-          + json.dumps(raster.backward_kernel_info()), flush=True)
+    for name, info in (("expand", expand.kernel_info),
+                       ("raster_fwd", raster.forward_kernel_info),
+                       ("raster_bwd", raster.backward_kernel_info)):
+        print(f"{name} build (CUDA runtime): " + json.dumps(info()),
+              flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -726,6 +805,7 @@ def main():
                       f"16384 g, {size} px")
     del st16, cams16
     check_segsum_segments()
+    check_expand_stress()
 
     # phase 3: training through the normal entry point at full width
     from opensplat_tpu_torch.config import TrainConfig

@@ -36,4 +36,45 @@ __device__ __forceinline__ float sigma_at(float A, float B, float C,
   return 0.5f * (A * dx * dx + C * dy * dy) + B * dx * dy;
 }
 
+// cp.async copies from global to shared memory (sm_80+): issued without
+// waiting, completed by cp_wait_all in the issuing thread, and visible to
+// the other threads after a barrier that follows the wait.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+               "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// What the CUDA runtime reports of a kernel's build at `threads` threads
+// and `dyn_smem` bytes of dynamic shared memory: o[0] registers per
+// thread, o[1] shared memory per CTA (static + dynamic, bytes), o[2]
+// resident CTAs per SM. Returns the CUDA error code.
+template <typename Kernel>
+inline int kernel_info(Kernel kernel, int threads, int dyn_smem, int* o) {
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int ctas = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads,
+                                                    dyn_smem);
+  o[0] = attr.numRegs;
+  o[1] = dyn_smem + static_cast<int>(attr.sharedSizeBytes);
+  o[2] = ctas;
+  return static_cast<int>(e);
+}
+
 }  // namespace osk

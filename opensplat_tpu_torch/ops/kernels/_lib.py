@@ -120,6 +120,8 @@ _SIGNATURES = {
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
                        ctypes.c_int),
     "osk_raster_bwd_info": ([ctypes.c_void_p], ctypes.c_int),
+    "osk_raster_fwd_info": ([ctypes.c_void_p], ctypes.c_int),
+    "osk_expand_info": ([ctypes.c_void_p], ctypes.c_int),
     "osk_segsum": ([ctypes.c_int] + [ctypes.c_void_p] * 5, ctypes.c_int),
     "osk_kbench_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] + [ctypes.c_void_p] * 4
@@ -149,6 +151,16 @@ def launch(name: str, *args) -> None:
     if err != 0:
         msg = lib.osk_error_string(err).decode()
         raise RuntimeError(f"opensplat_tpu_torch: {name} failed: {msg} ({err})")
+
+
+def kernel_info(entry: str, keys: tuple, *args) -> dict:
+    """What C entry `entry` reports of its kernel's build (from the CUDA
+    runtime) when called with `args`, one int per key."""
+    out = (ctypes.c_int * len(keys))()
+    err = getattr(library(), entry)(*args, ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"opensplat_tpu_torch: {entry} failed ({err})")
+    return dict(zip(keys, out))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -1,10 +1,14 @@
 """Candidate expansion with the exact tile-ellipse cull (kernel 1).
 
 Replaces opensplat_tpu/ops/pallas/expand.py::_expand_kernel
-(pallas_expand_bin). CUDA source: csrc/expand.cu — one thread per
-Gaussian writes its tile-bbox rows at its cumsum offset; bound by bytes
-(see the source note there). `expand_plain` is the same function in
-plain PyTorch; the wrapper takes it only for CPU tensors.
+(pallas_expand_bin). CUDA source: csrc/expand.cu, bound by bytes. It is
+candidate-row-parallel, as the TPU kernel is: one CTA of 256 threads per
+block of 128 Gaussians stages their fields in shared memory, and
+consecutive threads take consecutive rows of the block's contiguous row
+window, so a large Gaussian spreads over the CTA and the stores are
+coalesced (see the source note). The block windows come from `starts` and `cnt` on the
+device. `expand_plain` is the same function in plain PyTorch; the wrapper
+takes it only for CPU tensors.
 
 Outputs, for a stream of `total` candidate rows ordered Gaussian-major:
   keys (total,) int64  (tile << 32) | depth_bits, or the sentinel
@@ -123,3 +127,12 @@ def expand(cnt, starts, total: int, tile_min, tile_max, depths, xys, conics,
 
 
 expand.launches = 0
+
+
+def kernel_info() -> dict:
+    """The expansion kernel's build, from the CUDA runtime: Gaussians and
+    threads per CTA, registers per thread, shared memory per CTA in bytes
+    and resident CTAs per SM."""
+    return _lib.kernel_info("osk_expand_info", (
+        "gaussians_per_cta", "threads", "registers", "shared_bytes",
+        "ctas_per_sm"))

@@ -2,12 +2,15 @@
 
 Replaces opensplat_tpu/ops/pallas/raster.py::_fwd_kernel
 (pallas_rasterize_forward) and ::_bwd_kernel (pallas_rasterize_backward).
-CUDA sources: csrc/raster_fwd.cu and csrc/raster_bwd.cu — one CTA per
-16x16 tile, records gathered by gauss_id into shared memory; bound by the
-(pixel, record) arithmetic (see the source notes). The backward replays
-records in chunks of 32 and reduces each record's nine gradient
-sums as moments of v_sigma and fac over the tile's pixels, recombined in
-tile-local coordinates (`moment_terms`), as the JAX kernel does.
+CUDA sources: csrc/raster_fwd.cu and csrc/raster_bwd.cu, one thread per
+pixel, records gathered by gauss_id into shared memory in chunks (64 in
+the forward, 32 in the backward); both are bound by the (pixel, record)
+arithmetic (see the source notes). The forward computes a chunk's alphas
+in one branch-free block, then composites them in order without
+branches, one CTA per tile. The backward replays records back to
+front and reduces each record's nine gradient sums as moments of v_sigma
+and fac over the tile's pixels, recombined in tile-local coordinates
+(`moment_terms`), as the JAX kernel does.
 `rasterize_forward_plain` and `rasterize_backward_plain` are the same
 functions in plain PyTorch, record by record over all tiles at once in
 the kernels' order and arithmetic (the backward's moments included); the
@@ -27,8 +30,6 @@ record — v_x, v_y, v_A, v_B, v_C, v_opacity, v_r, v_g, v_b — at the row
 Gaussian's rows lie contiguous for the segment sum.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -379,17 +380,20 @@ def rasterize_backward(gauss_ids, tile_start, tile_end, xys, conics, opac,
 rasterize_backward.launches = 0
 
 
+def forward_kernel_info() -> dict:
+    """The forward kernel's build, from the CUDA runtime: K (records per
+    chunk), registers per thread, shared memory per CTA in bytes and
+    resident CTAs per SM."""
+    return _lib.kernel_info("osk_raster_fwd_info", (
+        "K", "registers", "shared_bytes", "ctas_per_sm"))
+
+
 def backward_kernel_info() -> dict:
     """The backward kernel's build, from the CUDA runtime: K (records per
     chunk), registers per thread, shared memory per CTA in bytes and
     resident CTAs per SM."""
-    out = (ctypes.c_int * 4)()
-    err = _lib.library().osk_raster_bwd_info(
-        ctypes.cast(out, ctypes.c_void_p))
-    if err != 0:
-        raise RuntimeError(f"opensplat_tpu_torch: osk_raster_bwd_info "
-                           f"failed ({err})")
-    return dict(zip(("K", "registers", "shared_bytes", "ctas_per_sm"), out))
+    return _lib.kernel_info("osk_raster_bwd_info", (
+        "K", "registers", "shared_bytes", "ctas_per_sm"))
 
 
 def _check_common(gauss_ids, tile_start, tile_end, xys, conics, opac, colors,

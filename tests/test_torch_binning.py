@@ -47,23 +47,71 @@ def _budget(proj):
     return ((total + 127) // 128) * 128 + 128
 
 
-@pytest.mark.parametrize("seed", [3, 8])
+def _stress_inputs(seed, n=300, size=128):
+    """Expansion inputs that stress a candidate-row-parallel kernel: three
+    Gaussians span every tile of a size x size frame (one has more rows
+    than a warp has lanes), 60% have no rows, one has a saturated mean,
+    and small tile boxes lie between them. Numpy fields from a seed."""
+    rng = np.random.default_rng(seed)
+    tb = (size + 15) // 16
+    tmin = rng.integers(0, tb, (n, 2))
+    tmax = np.minimum(tmin + rng.integers(1, 4, (n, 2)), tb)
+    zero = rng.uniform(size=n) < 0.6
+    tmax[zero] = tmin[zero]
+    span = [2, n // 2, n - 1]
+    tmin[span] = 0
+    tmax[span] = tb
+    cnt = np.prod(tmax - tmin, 1).astype(np.int32)
+    xys = rng.uniform(-20.0, size + 20.0, (n, 2)).astype(np.float32)
+    a = np.exp(rng.uniform(np.log(0.002), np.log(2.0), (n, 2)))
+    rho = rng.uniform(-0.9, 0.9, n)
+    conics = np.stack([a[:, 0], rho * np.sqrt(a[:, 0] * a[:, 1]), a[:, 1]],
+                      1).astype(np.float32)
+    conics[span[0]] = [2e-4, 0.0, 3e-4]  # wide: keeps most of its rows
+    xys[span[0]] = size / 2.0
+    xys[5] = 1e5  # saturated: every row keeps
+    opac = rng.uniform(0.005, 1.0, n).astype(np.float32)
+    depths = rng.uniform(0.5, 20.0, n).astype(np.float32)
+    return dict(cnt=cnt, tile_min=tmin.astype(np.int32),
+                tile_max=tmax.astype(np.int32), depths=depths, xys=xys,
+                conics=conics, opac=opac, H=size, W=size)
+
+
+def _scene_inputs(seed):
+    sc, proj, _, opac = _projected(seed)
+    return dict(cnt=np.asarray(proj.num_tiles_hit).astype(np.int32),
+                tile_min=np.asarray(proj.tile_min).astype(np.int32),
+                tile_max=np.asarray(proj.tile_max).astype(np.int32),
+                depths=np.asarray(proj.depths), xys=np.asarray(proj.xys),
+                conics=np.asarray(proj.conics), opac=np.asarray(opac),
+                H=sc["H"], W=sc["W"])
+
+
+@pytest.mark.parametrize("seed", [3, 8, "stress"])
 def test_expand_matches_pallas_kernel(seed):
-    sc, proj, tp, opac = _projected(seed)
-    n_rows = _budget(proj)
-    s_max = jnp.log(jnp.maximum(opac, 1e-12) / ALPHA_THRESH)
-    depth_bits = jax.lax.bitcast_convert_type(proj.depths, jnp.int32)
+    """The stream row for row and the kept counts, exactly, on projected
+    scenes and on the stress inputs (Gaussians spanning every tile beside
+    zero-count ones)."""
+    stress = seed == "stress"
+    d = _stress_inputs(5) if stress else _scene_inputs(seed)
+    j = {k: jnp.asarray(v) for k, v in d.items() if k not in ("H", "W")}
+    total = int(d["cnt"].sum())
+    n_rows = ((total + 127) // 128) * 128 + 128
+    s_max = jnp.log(jnp.maximum(j["opac"], 1e-12) / ALPHA_THRESH)
+    depth_bits = jax.lax.bitcast_convert_type(j["depths"], jnp.int32)
     jt, jd, jg, jk = pallas_expand_bin(
-        proj.num_tiles_hit, proj.tile_min, proj.tile_max, depth_bits,
-        sc["H"], sc["W"], n_rows, xys=proj.xys, conics=proj.conics,
-        s_max=s_max, cull=True, interpret=True)
-    cnt = tp.num_tiles_hit.to(torch.int32)
+        j["cnt"], j["tile_min"], j["tile_max"], depth_bits, d["H"], d["W"],
+        n_rows, xys=j["xys"], conics=j["conics"], s_max=s_max, cull=True,
+        interpret=True)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in d.items()
+         if k not in ("H", "W")}
+    cnt = t["cnt"]
     starts = torch.cumsum(cnt.long(), 0) - cnt.long()
-    total = int(cnt.sum())
-    tb_x, tb_y = tbin.num_tiles(sc["H"], sc["W"])
+    tb_x, tb_y = tbin.num_tiles(d["H"], d["W"])
     keys, gids, kept = texpand.expand(
-        cnt, starts, total, tp.tile_min, tp.tile_max, tp.depths, tp.xys,
-        tp.conics, torch.tensor(np.asarray(s_max)), tb_x, tb_x * tb_y)
+        cnt, starts, total, t["tile_min"], t["tile_max"], t["depths"],
+        t["xys"], t["conics"], torch.tensor(np.asarray(s_max)), tb_x,
+        tb_x * tb_y)
     assert texpand.expand.launches == 0  # CPU tensors: the plain version
     np.testing.assert_array_equal(kept.numpy(), np.asarray(jk))
     # the candidate streams are Gaussian-major on both sides: row for row
@@ -73,6 +121,10 @@ def test_expand_matches_pallas_kernel(seed):
     np.testing.assert_array_equal(depth, np.asarray(jd)[:total])
     np.testing.assert_array_equal(gids.numpy(), np.asarray(jg)[:total])
     assert 0 < int(kept.sum()) < total  # the cull dropped some pairs
+    if stress:
+        assert int(cnt.max()) == tb_x * tb_y > 32
+        assert int(kept.max()) > 32  # one Gaussian keeps > a warp of rows
+        assert float((cnt == 0).float().mean()) > 0.5
 
 
 @pytest.mark.parametrize("seed,spread", [(3, 1.0), (5, 2.5)])

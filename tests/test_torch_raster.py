@@ -28,8 +28,8 @@ from scene_utils import make_scene
 torch.set_num_threads(1)
 
 
-def _setup(n, seed, height=None, width=None):
-    s = make_scene(n=n, seed=seed)
+def _setup(n, seed, height=None, width=None, spread=1.0):
+    s = make_scene(n=n, seed=seed, spread=spread)
     h = height or s["H"]
     w = width or s["W"]
     opac = jnp.asarray(s["opacities"])
@@ -49,10 +49,17 @@ def _t(a, grad=False):
     return torch.tensor(np.asarray(a), requires_grad=grad)
 
 
-@pytest.mark.parametrize("n,seed,height,width", [(200, 2, None, None),
-                                                 (250, 3, 50, 70)])
-def test_forward_matches_pallas(n, seed, height, width):
-    s, h, w, jargs, common, budget = _setup(n, seed, height, width)
+@pytest.mark.parametrize(
+    "n,seed,height,width,spread",
+    [(200, 2, None, None, 1.0), (250, 3, 50, 70, 1.0),
+     (300, 7, None, None, 0.15)],
+    ids=["200-2-None-None", "250-3-50-70", "dense"])
+def test_forward_matches_pallas(n, seed, height, width, spread):
+    """The dense case crowds the scene onto the four central tiles: each
+    holds more records than four of the CUDA kernel's 64-record chunks,
+    and pixels stop inside a chunk past the first (both checked on the
+    port's own binning)."""
+    s, h, w, jargs, common, budget = _setup(n, seed, height, width, spread)
     bg = jnp.asarray(s["background"])
     img_j, ft_j, ni_j, ng_j = rasterize_pallas(
         *jargs, *common, bg, h, w, max_isects=budget, return_isects=True)
@@ -64,6 +71,15 @@ def test_forward_matches_pallas(n, seed, height, width):
     np.testing.assert_allclose(ft_t.numpy(), np.asarray(ft_j), atol=1e-5)
     assert int(ni_t) == int(ni_j) > 0
     assert int(ng_t) == int(ng_j) > 0
+    if spread < 1.0:
+        b, args = _backward_inputs(n, seed, spread)
+        fidx = args[9].long()
+        counts = b.tile_end - b.tile_start
+        assert int(counts.max()) > 4 * 64
+        stopped = fidx < traster.STOP_SENTINEL
+        assert float(stopped[int(counts.argmax())].float().mean()) > 0.2
+        into = (fidx - b.tile_start.long()[:, None])[stopped]
+        assert bool(((into > 64) & (into % 64 != 63)).any())
 
 
 def test_backward_matches_pallas():
@@ -91,10 +107,10 @@ def test_backward_matches_pallas():
                                    err_msg=name)
 
 
-def _backward_inputs(n, seed):
+def _backward_inputs(n, seed, spread=1.0):
     """The port's binning of a JAX-projected scene, its plain forward, and
     random cotangents: (binned, backward args without out_index)."""
-    s, h, w, jargs, common, _ = _setup(n, seed)
+    s, h, w, jargs, common, _ = _setup(n, seed, spread=spread)
     xys, conics, colors, opac = [_t(a) for a in jargs]
     depths, radii, nth, tmin, tmax = [_t(c) for c in common]
     proj = ProjectedGaussians(
