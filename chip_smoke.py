@@ -8,9 +8,10 @@ Run from the repository root on a machine with one CUDA card:
 Phases (any failure raises and the script exits non-zero):
   1. print the card's name and power limit (nvidia-smi), build the
      CUDA kernels from opensplat_tpu_torch/csrc into opensplat_tpu_torch/
-     _build/ (timed), and print the build of expand, raster_fwd and
-     raster_bwd as the CUDA runtime reports it (records or Gaussians per
-     CTA, registers, shared memory, resident CTAs per SM);
+     _build/ (timed), and print the build of expand, raster_fwd,
+     raster_bwd and the bench's kbench_fwd as the CUDA runtime reports
+     it (records or Gaussians per CTA, registers, shared memory, resident
+     CTAs per SM);
   2. hold each kernel against its plain PyTorch version on the card, on
      the 16384-Gaussian 256 px scene of bench.py and at 250 px (tiles
      padded past the image's edge), raster_bwd also against the direct
@@ -46,10 +47,17 @@ Phases (any failure raises and the script exits non-zero):
      against its plain version at the grown capacity;
   6. the forward-kernel ablation bench: each variant of
      csrc/raster_fwd_variants.cu against its plain version on a 64-tile
-     stream and again on the bench's default stream (1024 tiles x 1074
-     records, 32 tiles a row), then `python -m
-     opensplat_tpu_torch.tools.kbench_raster`'s run at that stream,
-     timing every variant beside the main path's forward kernel.
+     stream, on uneven tile ranges (an empty tile, a 40-record one, one
+     over four 256-chunks, one ending at the stream's end), on 257 tiles
+     whose starts fall at every residue mod 256, on 64 tiles of records
+     made to test the kernel's warp cull (scales 0.02-40 px, aspect up
+     to 30, conics it cannot bound, opacities at 1/255), and on the
+     bench's default stream (1024 tiles x 1074 records, 32 tiles a
+     row); the `full` kernel against the forward that runs (raster_fwd,
+     zero background) on the 64-tile and the bench stream; then `python
+     -m opensplat_tpu_torch.tools.kbench_raster`'s run at that stream,
+     timing every variant beside the main path's forward kernel, and
+     the (warp, record) steps `full` takes there.
 The line before the last is the {"kernels": [...]} table; the last line
 is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
@@ -257,50 +265,14 @@ def check_kernels(inp, label):
     return errs, g_k
 
 
-def device_rows(fn, n):
-    """[(kernel name, device ms per recorded launch, launches recorded)]
-    of n calls of `fn` under torch.profiler, by time per call: each
-    kernel's own duration on the card, free of the host's launch gaps."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    # kernels only: an operator's row repeats its kernels' device time.
-    # Times are per recorded launch: the trace has missed launches in
-    # back-to-back loops, so callers print the recorded count beside them
-    rows = [(e.key, e.self_device_time_total / 1e3 / e.count, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
-    return sorted(rows, key=lambda r: -r[1] * r[2])
-
-
-def device_ms(fn, reps, kernel=None):
-    """(device ms per call of `fn`, launches recorded) by torch.profiler
-    over `reps` calls after one warm-up: the kernels whose name holds
-    `kernel`, or all it launches, each at its time per recorded launch
-    times its launches per call. (None, 0) if the trace recorded none."""
-    fn()
-    rows = [r for r in device_rows(fn, reps)
-            if kernel is None or kernel in r[0]]
-    if not rows:
-        return None, 0
-    return (sum(t * max(1, round(k / reps)) for _, t, k in rows),
-            sum(k for _, _, k in rows))
-
-
 def profile_steps(trainer, first_step, n, step_ms):
     """Where a step's device time goes: torch.profiler over n more steps,
     device time per step by kernel, and the device's busy share of the
     unprofiled steady step time `step_ms`. Returns {kernel: (device ms
     per recorded launch, launches recorded)} for the port's kernels the
     trace recorded."""
+    from opensplat_tpu_torch.tools.profiling import device_rows
+
     step = [first_step]
 
     def one():
@@ -504,6 +476,7 @@ def tile_balance(inp):
     import torch
 
     from opensplat_tpu_torch.ops.kernels import raster
+    from opensplat_tpu_torch.tools.profiling import device_ms
 
     b = inp["binned"]
     per_tile = raster._pixel_replay(b.tile_start, b.tile_end,
@@ -550,6 +523,7 @@ def segsum_yardsticks(inp, rows):
     import torch
 
     from opensplat_tpu_torch.ops.kernels import segsum
+    from opensplat_tpu_torch.tools.profiling import device_ms
 
     b = inp["binned"]
     c = b.cand_count.shape[0]
@@ -731,21 +705,64 @@ def check_variants(stream, label):
     return errs, fidx_full
 
 
+def check_full_vs_real(stream, label):
+    """Phase 6: the bench's `full` kernel against the forward that runs,
+    raster.rasterize_forward (`real`: gauss_ids = arange, zero
+    background), on `stream`. They composite alike; `full` takes sigma
+    from tile-centred features, stops in log space and folds T every 256
+    records, `real` takes sigma from the pixel's offsets and multiplies
+    T record by record, so a stop on the threshold can fall one record
+    apart: check_variants' tolerances (final_idx equal on >= 99.9% of
+    pixels; where it agrees, rgb atol 2e-4 and T atol 1e-5). Raises on
+    disagreement."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels import raster
+    from opensplat_tpu_torch.ops.kernels import raster_variants as rv
+    from opensplat_tpu_torch.tools import kbench_raster as kb
+
+    args = list(kb.real_args(stream))
+    args[7] = torch.zeros(3, device=stream.xys.device)
+    h, w = args[8], args[9]
+    with torch.no_grad():
+        img, final_t, fi_r = raster.rasterize_forward(*args)
+        acc, fi_f = rv.rasterize_variant("full", *kb.variant_args(stream))
+    rgb = raster.image_to_tiles(img, stream.tb_x, stream.tb_y, h, w)
+    t_r = raster.image_to_tiles(final_t, stream.tb_x, stream.tb_y, h, w)
+    same = fi_f == fi_r
+    agree = float(same.float().mean())
+    d_rgb = (acc[:, :3].transpose(1, 2) - rgb).abs().amax(-1)
+    e_rgb = float(torch.where(same, d_rgb, 0.0).max())
+    e_t = float(torch.where(same, (acc[:, 3] - t_r).abs(), 0.0).max())
+    print(f"[{label}] kbench_fwd full against raster_fwd (real): final_idx "
+          f"differs at {int((~same).sum())} of {same.numel()} pixels "
+          f"(agreement {agree}, >= 0.999); where it agrees rgb err {e_rgb} "
+          f"(atol 2e-4), T err {e_t} (atol 1e-5)", flush=True)
+    if not (agree >= 0.999 and e_rgb <= 2e-4 and e_t <= 1e-5):
+        raise AssertionError(f"[{label}] kbench_fwd full disagrees with "
+                             "raster_fwd")
+
+
 def kbench_bound(stream, fidx, peak_bw, peak_ops):
     """(bound_ms, bound_by) of one `full` call with final_idx `fidx`,
     counted as bounds() counts raster_fwd: the (pixel, record) pairs each
     pixel replays up to its own stop x OPS_PER_PAIR_FWD, against each
     record its tile replays read once (36 bytes), the tile ranges and
     the outputs (acc, final_idx) written once."""
+    from opensplat_tpu_torch.ops.kernels import raster_variants
     from opensplat_tpu_torch.ops.kernels.raster import (pairs_replayed,
                                                         records_replayed)
 
     n_tiles = stream.tile_start.shape[0]
     replay = records_replayed(stream.tile_start, stream.tile_end, fidx)
     pairs = pairs_replayed(stream.tile_start, stream.tile_end, fidx)
+    steps = raster_variants.warp_steps(
+        stream.tile_start, stream.tile_end, stream.xys, stream.conics,
+        stream.opac, stream.tb_x, fidx)
     print(f"kbench work (full): {replay} records replayed, {pairs} (pixel, "
           f"record) pairs needed, {256 * replay} in tiles that run to their "
-          f"last pixel's stop", flush=True)
+          f"last pixel's stop; (warp, record) steps {json.dumps(steps)}",
+          flush=True)
     nbytes = replay * 36 + n_tiles * 8 + n_tiles * 256 * (8 + 1) * 4
     tb = nbytes / peak_bw * 1e3
     to = pairs * OPS_PER_PAIR_FWD / peak_ops * 1e3
@@ -779,7 +796,8 @@ def main():
     peak = next((v for k, v in PEAKS.items() if k in kind), None)
     if peak is None:
         raise RuntimeError(f"no published peaks for {kind!r}")
-    from opensplat_tpu_torch.ops.kernels import _lib, expand, raster, segsum
+    from opensplat_tpu_torch.ops.kernels import (_lib, expand, raster,
+                                                 raster_variants, segsum)
 
     t0 = time.perf_counter()
     _lib.library()
@@ -790,9 +808,16 @@ def main():
             print("  " + line.strip())
     for name, info in (("expand", expand.kernel_info),
                        ("raster_fwd", raster.forward_kernel_info),
-                       ("raster_bwd", raster.backward_kernel_info)):
+                       ("raster_bwd", raster.backward_kernel_info),
+                       ("kbench_fwd", raster_variants.kernel_info)):
         print(f"{name} build (CUDA runtime): " + json.dumps(info()),
               flush=True)
+    # warp_steps counts the bench kernel's steps by the module's constants
+    kb_info = raster_variants.kernel_info()
+    if (kb_info["records_per_chunk"], kb_info["records_per_alpha_block"]) != (
+            raster_variants.K, raster_variants.ALPHA_BLOCK):
+        raise AssertionError(f"kbench_fwd build {kb_info} differs from "
+                             "raster_variants.K and ALPHA_BLOCK")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -897,33 +922,37 @@ def main():
                   f"grown capacity {cap}, {n_alive} alive")
     del ref_trainer, ref_cams, st
 
-    # phase 6: the forward-kernel ablation bench — agreement on a small
-    # stream first, then at the bench's own default stream
-    from opensplat_tpu_torch.ops.kernels import raster_variants
+    # phase 6: the forward-kernel ablation bench — agreement on small
+    # and uneven streams first, then at the bench's own default stream
     from opensplat_tpu_torch.tools import kbench_raster
 
-    check_variants(kbench_raster.make_stream(64, 1074, 8, device="cuda"),
-                   "64 tiles x 1074 records")
+    small = kbench_raster.make_stream(64, 1074, 8, device="cuda")
+    check_variants(small, "64 tiles x 1074 records")
+    check_variants(kbench_raster.uneven_stream("cuda"),
+                   "uneven tiles over 1200 records")
+    check_variants(kbench_raster.residue_stream("cuda"),
+                   "257 tiles x 257 records (every start residue)")
+    check_variants(kbench_raster.cull_stream(device="cuda"),
+                   "64 tiles x 512 records (warp cull)")
     stream = kbench_raster.make_stream(device="cuda")
-    v_errs, fidx_full = check_variants(
-        stream, f"{stream.tile_start.shape[0]} tiles x 1074 records (bench)")
+    bench_label = f"{stream.tile_start.shape[0]} tiles x 1074 records (bench)"
+    v_errs, fidx_full = check_variants(stream, bench_label)
+    check_full_vs_real(small, "64 tiles x 1074 records")
+    check_full_vs_real(stream, bench_label)
     raster_variants.rasterize_variant.launches = 0
     bench = kbench_raster.main([])  # its default stream, median of 30
     launches["kbench_fwd"] = raster_variants.rasterize_variant.launches
     if launches["kbench_fwd"] == 0:
         raise AssertionError("the bench launched no variant kernel")
     print("kbench ms per call (median of 30, CUDA events): "
-          + json.dumps({k: round(v[0], 4) for k, v in bench.items()}),
-          flush=True)
+          + json.dumps({k: round(v[0], 4) for k, v in bench.items()})
+          + "; device (torch.profiler, 10 calls: ms, launches recorded) "
+          + json.dumps({k: v[2] for k, v in bench.items()}), flush=True)
     vargs = kbench_raster.variant_args(stream)
     bnd["kbench_fwd"] = kbench_bound(stream, fidx_full, *peak)
     plain_ms["kbench_fwd"] = time_ms(
         lambda: raster_variants.rasterize_variant_plain("full", *vargs), 3)
-    dev_ms["kbench_fwd"] = device_ms(
-        lambda: raster_variants.rasterize_variant("full", *vargs), 10,
-        KERNEL_FUNCS["kbench_fwd"])
-    print("kbench_fwd full: device ms per call, launches recorded "
-          f"{dev_ms['kbench_fwd']} (torch.profiler, 10 calls)", flush=True)
+    dev_ms["kbench_fwd"] = bench["full"][2]
     kernel_ms["kbench_fwd"] = bench["full"][0]
     errs["kbench_fwd"] = v_errs["full"]
 

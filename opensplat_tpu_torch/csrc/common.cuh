@@ -37,8 +37,9 @@ __device__ __forceinline__ float sigma_at(float A, float B, float C,
 }
 
 // cp.async copies from global to shared memory (sm_80+): issued without
-// waiting, completed by cp_wait_all in the issuing thread, and visible to
-// the other threads after a barrier that follows the wait.
+// waiting, grouped by cp_commit, completed by cp_wait_all (or
+// cp_wait_group) in the issuing thread, and visible to the other threads
+// after a barrier that follows the wait.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
@@ -51,12 +52,28 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                "l"(src) : "memory");
 }
 
+// 16 bytes, bypassing L1; `src_bytes` (0..16) of them are read from
+// `src` and the rest of the 16 are zero-filled. Both addresses 16-byte
+// aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes) : "memory");
+}
+
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // What the CUDA runtime reports of a kernel's build at `threads` threads

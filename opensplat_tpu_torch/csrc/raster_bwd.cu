@@ -79,26 +79,6 @@ struct Smem {
   float4 vrgb[PIX];          // the pixel's v_r, v_g, v_b
 };
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
-               "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
-               "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // Thread t copies field t % 8 of record t / 8 of a chunk (8 copies per
 // record: xy as one 8-byte copy, A, B, C, opacity, r, g, b).
 __device__ __forceinline__ void gather_field(float4* rec3, int f, int gi,
@@ -108,14 +88,14 @@ __device__ __forceinline__ void gather_field(float4* rec3, int f, int gi,
                                              const float* colors) {
   float* r = reinterpret_cast<float*>(rec3);
   switch (f) {
-    case 0: cp_async8(r + 0, xys + 2 * gi); break;
-    case 1: cp_async4(r + 2, conics + 3 * gi); break;
-    case 2: cp_async4(r + 3, conics + 3 * gi + 1); break;
-    case 3: cp_async4(r + 4, conics + 3 * gi + 2); break;
-    case 4: cp_async4(r + 5, opac + gi); break;
-    case 5: cp_async4(r + 6, colors + 3 * gi); break;
-    case 6: cp_async4(r + 7, colors + 3 * gi + 1); break;
-    default: cp_async4(r + 8, colors + 3 * gi + 2); break;
+    case 0: osk::cp_async8(r + 0, xys + 2 * gi); break;
+    case 1: osk::cp_async4(r + 2, conics + 3 * gi); break;
+    case 2: osk::cp_async4(r + 3, conics + 3 * gi + 1); break;
+    case 3: osk::cp_async4(r + 4, conics + 3 * gi + 2); break;
+    case 4: osk::cp_async4(r + 5, opac + gi); break;
+    case 5: osk::cp_async4(r + 6, colors + 3 * gi); break;
+    case 6: osk::cp_async4(r + 7, colors + 3 * gi + 1); break;
+    default: osk::cp_async4(r + 8, colors + 3 * gi + 2); break;
   }
 }
 
@@ -199,7 +179,7 @@ __global__ void __launch_bounds__(PIX, 2) raster_bwd_kernel(
     if (gi >= 0)
       gather_field(S.rec[c % NFB][g_rec], g_fld, gi, xys, conics, opac,
                    colors);
-    cp_commit();  // one group per chunk, empty or not
+    osk::cp_commit();  // one group per chunk, empty or not
   };
   gather(0, load_gid(0));
   int gid_next = load_gid(1);
@@ -266,7 +246,7 @@ __global__ void __launch_bounds__(PIX, 2) raster_bwd_kernel(
   for (int c = 0; c < nch; ++c) {
     gather(c + 1, gid_next);
     gid_next = load_gid(c + 2);
-    cp_wait_all_but_one();  // this thread's copies of chunk c have landed
+    osk::cp_wait_group<1>();  // this thread's copies of chunk c have landed
     __syncthreads();        // B1: everyone's; the partials of chunk c - 1
     if (c > 0) finalize(c - 1);
 
@@ -379,18 +359,9 @@ OSK_API int osk_raster_bwd(int n_tiles, const void* tile_start,
 OSK_API int osk_raster_bwd_info(void* out) {
   int* o = static_cast<int*>(out);
   const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t e = cudaFuncSetAttribute(
+  const cudaError_t e = cudaFuncSetAttribute(
       raster_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  cudaFuncAttributes attr;
-  e = cudaFuncGetAttributes(&attr, raster_bwd_kernel);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  int ctas = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, raster_bwd_kernel,
-                                                    PIX, smem);
   o[0] = K;
-  o[1] = attr.numRegs;
-  o[2] = smem + static_cast<int>(attr.sharedSizeBytes);
-  o[3] = ctas;
-  return static_cast<int>(e);
+  return osk::kernel_info(raster_bwd_kernel, PIX, smem, o + 1);
 }

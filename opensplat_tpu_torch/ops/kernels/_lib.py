@@ -122,6 +122,7 @@ _SIGNATURES = {
     "osk_raster_bwd_info": ([ctypes.c_void_p], ctypes.c_int),
     "osk_raster_fwd_info": ([ctypes.c_void_p], ctypes.c_int),
     "osk_expand_info": ([ctypes.c_void_p], ctypes.c_int),
+    "osk_kbench_fwd_info": ([ctypes.c_void_p], ctypes.c_int),
     "osk_segsum": ([ctypes.c_int] + [ctypes.c_void_p] * 5, ctypes.c_int),
     "osk_kbench_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                        + [ctypes.c_int] + [ctypes.c_void_p] * 4

@@ -2,10 +2,15 @@
 
 Replaces tools/kbench_raster.py::build_variant (its fwd_kernel, launched
 by pl.pallas_call). CUDA source: csrc/raster_fwd_variants.cu — one CTA
-per tile, one thread per pixel, the JAX variant's chunk loop templated on
-the variant. `rasterize_variant_plain` is the same function in plain
-PyTorch, vectorised over tiles, pixels and the 256 lanes of a chunk; the
-wrapper takes it only for CPU tensors.
+per tile, one thread per pixel, templated on the variant; it stages the
+JAX chunks of K records (16-byte cp.async copies, so the four record
+tensors must be 16-byte aligned), lists for each warp the
+records that can reach its pixels (`warp_masks`), computes their alphas
+in branch-free blocks of ALPHA_BLOCK and lets the warp vote past the
+records none of its pixels uses. `rasterize_variant_plain` is the same
+function in plain PyTorch, vectorised over tiles, pixels and the 256
+lanes of a chunk; the wrapper takes it only for CPU tensors.
+`warp_steps` counts the (warp, record) steps the kernel takes.
 
 Semantics (the JAX variants, tools/kbench_raster.py:78-201): chunks of
 K = 256 records aligned to the global record index (base0 = start -
@@ -44,6 +49,9 @@ from .raster import K, PIX, STOP_SENTINEL
 VARIANTS = ("full", "nomatmul", "notrans", "nostop", "skeleton")
 LOG_T_EPS = math.log(T_EPS)
 TILE_BATCH = 64  # tiles per step of the plain version
+# the kernel's records per alpha block (csrc/raster_fwd_variants.cu: G;
+# chip_smoke.py holds it to kernel_info())
+ALPHA_BLOCK = 8
 
 
 def _pixel_quad(device):
@@ -54,6 +62,23 @@ def _pixel_quad(device):
     qx = (p % BLOCK_X).to(torch.float32) - 0.5 * (BLOCK_X - 1)
     qy = (p // BLOCK_X).to(torch.float32) - 0.5 * (BLOCK_Y - 1)
     return qx * qx, qy * qy, qx * qy, qx, qy
+
+
+def _sigma(g, xys, conics, tcx, tcy, quad):
+    """(nb, PIX, L) sigma of records g (nb, L) at every pixel of tiles
+    centred on (tcx, tcy) (nb, 1): raster.py::_record_quad's features in
+    its operation order, dotted with the pixel factors `quad`, clamped
+    at 0."""
+    qxx, qyy, qxy, qx, qy = quad
+    x, y = xys[g, 0], xys[g, 1]
+    A, B, C = conics[g, 0], conics[g, 1], conics[g, 2]
+    xr = x - tcx
+    yr = y - tcy
+    f = [0.5 * A, 0.5 * C, B, -(A * xr + B * yr), -(C * yr + B * xr),
+         0.5 * (A * xr * xr + C * yr * yr) + B * xr * yr]
+    f = [v[:, None, :] for v in f]  # (nb, 1, L)
+    return (qxx * f[0] + qyy * f[1] + qxy * f[2] + qx * f[3] + qy * f[4]
+            + f[5]).clamp(min=0.0)
 
 
 def _variant_tiles(name, t, tile_start, tile_end, xys, conics, opac,
@@ -67,7 +92,7 @@ def _variant_tiles(name, t, tile_start, tile_end, xys, conics, opac,
     base0 = start - start % K
     n_chunks = torch.where(end > start, (end - base0 + K - 1) // K, 0)
     lane = torch.arange(K, device=dev)
-    qxx, qyy, qxy, qx, qy = (v[None, :, None] for v in _pixel_quad(dev))
+    quad = [v[None, :, None] for v in _pixel_quad(dev)]
     tcx = ((t % tb_x) * BLOCK_X).to(torch.float32)[:, None] + 7.5
     tcy = ((t // tb_x) * BLOCK_Y).to(torch.float32)[:, None] + 7.5
     T = torch.ones((nb, PIX), device=dev)
@@ -84,16 +109,7 @@ def _variant_tiles(name, t, tile_start, tile_end, xys, conics, opac,
             T = T + x0[:, None]  # + 0.0 past a tile's chunks: exact
             continue
         valid = live[:, None] & (gk >= start[:, None]) & (gk < end[:, None])
-        # raster.py::_record_quad, in its operation order
-        x, y = xys[g, 0], xys[g, 1]
-        A, B, C = conics[g, 0], conics[g, 1], conics[g, 2]
-        xr = x - tcx
-        yr = y - tcy
-        f = [0.5 * A, 0.5 * C, B, -(A * xr + B * yr), -(C * yr + B * xr),
-             0.5 * (A * xr * xr + C * yr * yr) + B * xr * yr]
-        f = [v[:, None, :] for v in f]  # (nb, 1, K)
-        sigma = (qxx * f[0] + qyy * f[1] + qxy * f[2] + qx * f[3]
-                 + qy * f[4] + f[5]).clamp(min=0.0)  # (nb, PIX, K)
+        sigma = _sigma(g, xys, conics, tcx, tcy, quad)  # (nb, PIX, K)
         op = opac[g][:, None, :]
         if name == "notrans":
             alpha = torch.clamp(op * (1.0 - 0.05 * sigma), max=FWD_ALPHA_CLAMP)
@@ -149,6 +165,109 @@ def rasterize_variant_plain(name, tile_start, tile_end, xys, conics, opac,
     return acc, fidx
 
 
+def warp_masks(xr, yr, A, B, C, op, notrans=False):
+    """The kernel's warp_mask, elementwise over records: which warps (bit
+    w: the tile's pixel rows 2w and 2w + 1) a record at tile-centred
+    (xr, yr) can reach with alpha >= 1/255. The bounding box of its
+    ellipse sigma <= s_max + 0.5, widened by 0.1 pixel, where alpha falls to
+    1/255 at sigma = s_max; every warp for a conic outside positive A
+    and C up to 1000 with A C - B^2 >= A C / 100, none for op < 1/255.
+    int64 masks of the records' shape."""
+    det = A * C - B * B
+    fine = ((A > 0) & (C > 0) & (A <= 1000.0) & (C <= 1000.0)
+            & (det >= 0.01 * A * C) & (op <= 1e30) & (xr.abs() <= 1e30)
+            & (yr.abs() <= 1e30))
+    opc = op.clamp(min=ALPHA_THRESH)
+    s = 0.5 + (20.0 * (1.0 - 1.0 / (255.0 * opc)) if notrans
+               else torch.log(255.0 * opc))
+    det = torch.where(fine, det, 1.0)
+    ex = torch.sqrt(2.0 * s * C.abs() / det) + 0.1
+    ey = torch.sqrt(2.0 * s * A.abs() / det) + 0.1
+    lo = torch.ceil((yr - ey + 6.5) * 0.5)
+    hi = torch.floor((yr + ey + 7.5) * 0.5)
+    miss = ((xr - ex > 7.5) | (xr + ex < -7.5) | (lo > 7.0) | (hi < 0.0)
+            | (lo > hi))
+    lo = torch.nan_to_num(lo).clamp(0, 7).long()
+    hi = torch.nan_to_num(hi).clamp(0, 7).long()
+    bits = ((2 << hi) - 1) & ~((1 << lo) - 1)
+    bits = torch.where(miss, 0, bits)
+    bits = torch.where(fine, bits, 0xFF)
+    return torch.where(op < ALPHA_THRESH, 0, bits)
+
+
+def warp_steps(tile_start, tile_end, xys, conics, opac, tb_x, final_idx):
+    """The (warp, record) steps of `full` on these records, from its
+    final_idx (a warp is 32 pixels, two rows of a tile), summed over
+    warps, as a dict:
+      replay  records from the tile's start to the warp's last stop (the
+              stop record included; the tile's end where a pixel never
+              stops): a loop that takes a warp's records one by one;
+      listed  the records of the K-record chunks (aligned to the global
+              index) up to the one holding the warp's last stop that
+              warp_masks keeps for the warp;
+      alpha   the kernel's alpha-block steps: each chunk's list in
+              blocks of ALPHA_BLOCK records, the last block padded, up
+              to the block holding the warp's last stop;
+      used    the listed records some pixel of the warp composites or
+              stops at (alpha >= 1/255, not past its stop): the steps
+              the kernel's vote lets through."""
+    dev = xys.device
+    n_tiles = tile_start.shape[0]
+    quad = [v[None, :, None] for v in _pixel_quad(dev)]
+    nw = PIX // 32
+    out = dict(replay=0, listed=0, alpha=0, used=0)
+    for t0 in range(0, n_tiles, TILE_BATCH // 4):
+        t = torch.arange(t0, min(t0 + TILE_BATCH // 4, n_tiles), device=dev)
+        nb = t.shape[0]
+        start = tile_start[t].long()[:, None]
+        end = tile_end[t].long()[:, None]
+        live = end > start  # (nb, 1)
+        sb0 = start - start % K
+        f = final_idx[t].long()
+        last = torch.where(f >= STOP_SENTINEL, end - 1, f)  # (nb, PIX)
+        w_last = last.reshape(nb, nw, 32).amax(-1)  # (nb, warps)
+        w_stops = (f < STOP_SENTINEL).reshape(nb, nw, 32).all(-1)
+        out["replay"] += int(torch.where(live, w_last - start + 1, 0).sum())
+        span = int((end - sb0).max()) if bool(live.any()) else 0
+        span = -(-span // K) * K
+        gk = sb0 + torch.arange(span, device=dev)  # (nb, span)
+        g = gk.clamp(0, max(xys.shape[0] - 1, 0))
+        valid = (gk >= start) & (gk < end)
+        tcx = ((t % tb_x) * BLOCK_X).to(torch.float32)[:, None] + 7.5
+        tcy = ((t // tb_x) * BLOCK_Y).to(torch.float32)[:, None] + 7.5
+        xr, yr = xys[g, 0] - tcx, xys[g, 1] - tcy
+        masks = torch.where(valid, warp_masks(
+            xr, yr, conics[g, 0], conics[g, 1], conics[g, 2], opac[g]), 0)
+        w = torch.arange(nw, device=dev)[None, :, None]
+        # (nb, warps, span): listed for the warp, before its last stop's
+        # chunk ends
+        c = (gk - sb0) // K
+        c_last = ((w_last - sb0) // K)[:, :, None]
+        listed = (((masks[:, None, :] >> w) & 1).bool()
+                  & (c[:, None, :] <= c_last) & live[:, :, None])
+        out["listed"] += int(listed.sum())
+        per_chunk = listed.reshape(nb, nw, span // K, K)
+        n_list = per_chunk.sum(-1)  # (nb, warps, chunks)
+        blocks = -(-n_list // ALPHA_BLOCK)
+        # in the last stop's chunk, only up to that record's block
+        pos = (per_chunk.cumsum(-1) - 1).reshape(nb, nw, span)
+        at_last = gk[:, None, :] == w_last[:, :, None]
+        pos_last = torch.where(at_last, pos, 0).amax(-1)  # (nb, warps)
+        chunks = torch.arange(span // K, device=dev)[None, None, :]
+        cut = (chunks == c_last) & w_stops[:, :, None]
+        blocks = torch.where(cut, (pos_last // ALPHA_BLOCK + 1)[:, :, None],
+                             blocks)
+        out["alpha"] += int(blocks.sum()) * ALPHA_BLOCK
+        sigma = _sigma(g, xys, conics, tcx, tcy, quad)
+        alpha = torch.clamp(opac[g][:, None, :] * torch.exp(-sigma),
+                            max=FWD_ALPHA_CLAMP)
+        used = ((alpha >= ALPHA_THRESH) & valid[:, None, :]
+                & (gk[:, None, :] <= last[:, :, None]))
+        used = used.reshape(nb, nw, 32, span).any(2)
+        out["used"] += int(used.sum())
+    return out
+
+
 def rasterize_variant(name, tile_start, tile_end, xys, conics, opac, colors,
                       tb_x: int):
     """(acc (T, 8, 256) f32, final_idx (T, 256) int32) of variant `name`."""
@@ -165,6 +284,11 @@ def rasterize_variant(name, tile_start, tile_end, xys, conics, opac, colors,
     _lib.check(conics, "conics", torch.float32, (n, 3))
     _lib.check(opac, "opac", torch.float32, (n,))
     _lib.check(colors, "colors", torch.float32, (n, 3))
+    for t, what in ((xys, "xys"), (conics, "conics"), (opac, "opac"),
+                    (colors, "colors")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: the kernel copies 16-byte pieces and "
+                             "needs a 16-byte-aligned tensor")
     acc = torch.empty((n_tiles, 8, PIX), dtype=torch.float32,
                       device=xys.device)
     fidx = torch.empty((n_tiles, PIX), dtype=torch.int32, device=xys.device)
@@ -178,3 +302,12 @@ def rasterize_variant(name, tile_start, tile_end, xys, conics, opac, colors,
 
 
 rasterize_variant.launches = 0
+
+
+def kernel_info() -> dict:
+    """The `full` kernel's build, from the CUDA runtime: records per
+    chunk and per alpha block, registers per thread, shared memory per
+    CTA in bytes and resident CTAs per SM."""
+    return _lib.kernel_info("osk_kbench_fwd_info", (
+        "records_per_chunk", "records_per_alpha_block", "registers",
+        "shared_bytes", "ctas_per_sm"))
