@@ -57,8 +57,24 @@ Phases (any failure raises and the script exits non-zero):
      zero background) on the 64-tile and the bench stream; then `python
      -m opensplat_tpu_torch.tools.kbench_raster`'s run at that stream,
      timing every variant beside the main path's forward kernel, and
-     the (warp, record) steps `full` takes there.
-The line before the last is the {"kernels": [...]} table; the last line
+     the (warp, record) steps `full` takes there;
+  7. the CLI end to end: tools/make_synthetic_project.py writes a
+     nerfstudio project (16 cameras at 512 px, the GT rendered on the
+     card, sparse.ply = 131072 GT means jittered), and
+     opensplat_tpu_torch.cli.main trains it for 300 steps (256 px to
+     step 100, then 512; SH degree 3 by step 300; warm-up and refine
+     every 50, so step 100 densifies; a validation camera; checkpoints
+     at 150 and 300; the oracle check), with every training kernel's
+     counter set to 0 before and read after; it prints the load time,
+     steps/s from the metrics file, the loss, the refines' Gaussians
+     before and after, the validation loss and PSNR, the oracle PSNR
+     (raises below 30 dB), the files written and the launches (raises
+     below one a step). Then ckpt_300.npz and the scene are deleted and
+     --auto-resume trains steps 151-300 again: the scene must equal the
+     uninterrupted run's (alive masks equal, rtol 1e-5; it says whether
+     bitwise). cv2 and PIL must not have been imported.
+The line before the last is the {"kernels": [...]} table (with each
+training kernel's phase-7 launches as `cli_launches`); the last line
 is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
 """
@@ -651,6 +667,171 @@ def refine_phase(n_points, size, n_steps, device):
     return trainer, cams
 
 
+def cli_phase(n_points, size, n_steps, device):
+    """Phase 7: the CLI end to end. Writes a synthetic nerfstudio project
+    (tools/make_synthetic_project.py: 16 cameras at `size` px, the GT
+    rendered on `device`, sparse.ply = the n_points GT means jittered),
+    trains it through opensplat_tpu_torch.cli.main for n_steps steps
+    (256 then 512 px, SH degree 3 by the end, a densifying refine at a
+    sixth of the steps, a validation camera, checkpoints every half,
+    the oracle check), deletes the last checkpoint and the scene, runs
+    again with --auto-resume and compares the scenes. Raises on a
+    failed check; returns each training kernel's launch count over the
+    first run."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from opensplat_tpu_torch import cli
+    from opensplat_tpu_torch.io import load_ply
+    from opensplat_tpu_torch.models.gaussians import PARAM_NAMES
+    from opensplat_tpu_torch.ops.kernels import expand, raster, segsum
+    from opensplat_tpu_torch.tools.make_synthetic_project import make_project
+
+    cuda = torch.device(device).type == "cuda"
+    third, sixth, half = n_steps // 3, n_steps // 6, n_steps // 2
+    wrappers = {"expand": expand.expand,
+                "raster_fwd": raster.rasterize_forward,
+                "raster_bwd": raster.rasterize_backward,
+                "segsum": segsum.segment_sum}
+    with tempfile.TemporaryDirectory() as tmp:
+        proj, out = os.path.join(tmp, "project"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        n_sparse = make_project(proj, cams=16, points=n_points, res=size,
+                                sparse_frac=1.0, jitter=0.02, device=device,
+                                verbose=False)
+        print(f"cli: project written in {time.perf_counter() - t0:.2f} s "
+              f"(16 cameras at {size} px, {n_sparse} sparse points, GT "
+              f"rendered on {device})", flush=True)
+        scene = os.path.join(out, "scene.ply")
+        # a densifying refine needs step < n_steps / 2 (the reference's
+        # stop_split_at): warm-up and refine interval a sixth of the run
+        args = [proj, "-o", scene, "-n", str(n_steps), "--sh-degree", "3",
+                "--sh-degree-interval", str(third), "--num-downscales", "1",
+                "--resolution-schedule", str(third),
+                "--warmup-length", str(sixth), "--refine-every", str(sixth),
+                "--val", "--checkpoint-every", str(half), "--ckpt-dir", out]
+        if not cuda:
+            args.append("--cpu")
+
+        def run(extra, label):
+            """cli.main(args + extra): its stdout's lines and the wall
+            time."""
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = cli.main(args + extra)
+            lines = buf.getvalue().splitlines()
+            if rc != 0:
+                raise AssertionError(f"cli ({label}) returned {rc}:\n"
+                                     + "\n".join(lines))
+            return lines, time.perf_counter() - t
+
+        def line(lines, part):
+            found = [ln for ln in lines if part in ln]
+            if not found:
+                raise AssertionError(f"cli printed no {part!r} line:\n"
+                                     + "\n".join(lines[-20:]))
+            return found[0]
+
+        for fn in wrappers.values():
+            fn.launches = 0
+        mfile = os.path.join(tmp, "metrics.jsonl")
+        lines, wall = run(["--oracle-check", "--metrics-file", mfile], "run")
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+        print(f"cli: {line(lines, 'Using ')}; {line(lines, 'Loaded ')}; "
+              f"{n_steps} steps in {wall:.2f} s (whole run)", flush=True)
+        recs = [json.loads(r) for r in open(mfile)]
+        steps = {r["step"]: r for r in recs if r["type"] == "step"}
+        refines = [r for r in recs if r["type"] == "refine"]
+        losses = [steps[k]["loss"] for k in sorted(steps)]
+        if len(losses) != n_steps or not all(np.isfinite(losses)):
+            raise AssertionError(f"cli: {len(losses)} step records, "
+                                 f"nonfinite: {not all(np.isfinite(losses))}")
+        print("cli steps/s (metrics file, rolling 50 steps, every step "
+              "read back) and the Gaussians alive at that step: "
+              + json.dumps({
+                  f"{px} px, step {k}": {
+                      "steps_per_sec": steps[k]["steps_per_sec"],
+                      "n_gaussians": steps[k]["n_gaussians"]}
+                  for px, k in ((size // 2, third - 10),
+                                (size, 2 * third - 10),
+                                (size, n_steps - 10))}), flush=True)
+        psnrs = [steps[k]["psnr"] for k in sorted(steps)]
+        print(f"cli loss: steps 1-10 mean {np.mean(losses[:10]):.5f}, last "
+              f"10 mean {np.mean(losses[-10:]):.5f}; train PSNR last 10 "
+              f"mean {np.mean(psnrs[-10:]):.3f} dB")
+        if not np.mean(losses[-10:]) < np.mean(losses[:10]):
+            raise AssertionError("cli: the loss did not fall")
+        dens = [r for r in refines
+                if r.get("n_splits", 0) + r.get("n_dups", 0)]
+        if not dens:
+            raise AssertionError(f"cli: no densifying refine: {refines}")
+        for r in refines:
+            print(f"cli refine at step {r['step']}: Gaussians "
+                  f"{steps[r['step']]['n_gaussians']} -> {r['n_alive']}; "
+                  + json.dumps({k: v for k, v in r.items()
+                                if k not in ("type", "step", "n_alive")}))
+        print(f"cli Gaussians: {n_sparse} at step 1, "
+              f"{steps[n_steps]['n_gaussians']} at step {n_steps}")
+        val = line(lines, "validation loss:")
+        vloss = float(val.split("validation loss:")[1].split()[0])
+        vpsnr = float(val.split("(PSNR ")[1].split()[0])
+        oracle = line(lines, "oracle-check")
+        opsnr = float(oracle.split("PSNR ")[1].split()[0])
+        print(f"cli validation: loss {vloss:.6f}, PSNR {vpsnr:.3f} dB "
+              f"({val.split()[0]})")
+        print(f"cli {oracle}", flush=True)
+        if not (np.isfinite(vloss) and opsnr >= 30.0):
+            raise AssertionError(f"cli: validation loss {vloss}, oracle "
+                                 f"PSNR {opsnr} dB (needs >= 30)")
+        files = sorted(os.listdir(out))
+        print("cli files: " + ", ".join(
+            f"{f} ({os.path.getsize(os.path.join(out, f))} B)" for f in files))
+        for f in ("scene.ply", "cameras.json", f"ckpt_{half}.npz",
+                  f"ckpt_{n_steps}.npz"):
+            if f not in files:
+                raise AssertionError(f"cli: {f} not written")
+        print("cli kernel launches over the run (training steps, val and "
+              "oracle renders): " + json.dumps(launches), flush=True)
+        for k, n in launches.items():
+            # (on CPU tensors, in a rehearsal, the wrappers count nothing)
+            if cuda and n < n_steps:
+                raise AssertionError(f"cli: {k} launched {n} times in "
+                                     f"{n_steps} steps")
+
+        # resume: the last checkpoint and the scene are gone (the crash)
+        ref = os.path.join(tmp, "uninterrupted.ply")
+        shutil.move(scene, ref)
+        os.remove(os.path.join(out, f"ckpt_{n_steps}.npz"))
+        lines, wall = run(["--auto-resume"], "resume")
+        print(f"cli resume: {line(lines, 'Resuming from')}; "
+              f"{n_steps - half} steps in {wall:.2f} s", flush=True)
+        bitwise = open(ref, "rb").read() == open(scene, "rb").read()
+        a, _ = load_ply(ref, device="cpu")
+        b, _ = load_ply(scene, device="cpu")
+        if not torch.equal(a.alive, b.alive):
+            raise AssertionError("cli resume: alive masks differ")
+        worst = {}
+        for name in PARAM_NAMES:
+            x, y = getattr(a.params, name), getattr(b.params, name)
+            worst[name] = float((x - y).abs().max()) if x.numel() else 0.0
+            if not torch.allclose(y, x, rtol=1e-5, atol=1e-6):
+                raise AssertionError(f"cli resume: {name} differs from the "
+                                     f"uninterrupted run by {worst[name]}")
+        print(f"cli resume: the scene equals the uninterrupted run's "
+              f"({'bitwise' if bitwise else 'within rtol 1e-5'}; "
+              f"{int(a.alive.sum())} Gaussians; max abs diff "
+              + json.dumps(worst) + ")", flush=True)
+    for mod in ("cv2", "PIL"):
+        if mod in sys.modules:
+            raise AssertionError(f"phase 7 imported {mod}")
+    return launches
+
+
 def check_variants(stream, label):
     """Phase 6's agreement: each variant kernel against its plain version
     on `stream`. The kernel's running prefix and the plain version's
@@ -956,6 +1137,10 @@ def main():
     kernel_ms["kbench_fwd"] = bench["full"][0]
     errs["kbench_fwd"] = v_errs["full"]
 
+    # phase 7: the CLI end to end on a synthetic project at the headline
+    # model's width, resume included
+    cli_launches = cli_phase(131072, 512, 300, "cuda")
+
     table = []
     for k, (src, rep) in KERNELS.items():
         table.append({
@@ -965,6 +1150,7 @@ def main():
             "bound_ms": bnd[k][0], "bound_by": bnd[k][1],
             "library_ms": library_ms if k == "segsum" else None,
             "device_ms": dev_ms.get(k, (None,))[0],
+            "cli_launches": cli_launches.get(k),
         })
     for row in table:
         print(f"  {row['name']:<10} {row['ms']:.4f} ms  device "

@@ -59,6 +59,12 @@ def rgb_to_sh(rgb):
     return (rgb - 0.5) / SH_C0
 
 
+def sh_to_rgb(sh):
+    """0th SH coefficient -> RGB clamped to [0, 1] (reference sh2rgb); a
+    tensor or a numpy array."""
+    return (sh * SH_C0 + 0.5).clip(0.0, 1.0)
+
+
 def eval_sh_basis(degree: int, degrees_to_use: int,
                   viewdirs: torch.Tensor) -> torch.Tensor:
     """(N, num_sh_bases(degree)) basis; columns past

@@ -1,2 +1,2 @@
-"""Tools of the port: microbenches run as `python -m
-opensplat_tpu_torch.tools.<name>`."""
+"""Tools of the port (microbenches, the synthetic-project writer), run
+as `python -m opensplat_tpu_torch.tools.<name>`."""

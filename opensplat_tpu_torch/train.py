@@ -111,32 +111,62 @@ def train_step(state: TrainState, *args, device="cuda", **kwargs):
 
 
 class InfiniteRandomSampler:
-    """Reshuffling camera sampler (utils.hpp:14-38 semantics, numpy RNG)."""
+    """Reshuffling camera sampler (utils.hpp:14-38 semantics, numpy RNG).
+
+    `draws` counts every next(), so a resumed run can fast_forward() to
+    the position a checkpoint recorded and replay the uninterrupted
+    run's camera order."""
 
     def __init__(self, n: int, seed: int = 42):
         self._rng = np.random.default_rng(seed)
         self._n = n
         self._order = self._rng.permutation(n)
         self._i = 0
+        self.draws = 0
 
     def next(self) -> int:
         idx = int(self._order[self._i])
         self._i += 1
+        self.draws += 1
         if self._i >= self._n:
             self._order = self._rng.permutation(self._n)
             self._i = 0
         return idx
 
+    def fast_forward(self, n_draws: int) -> None:
+        """Advance to the state after `n_draws` next() calls from fresh."""
+        for _ in range(max(0, int(n_draws))):
+            self.next()
+        self.draws = max(0, int(n_draws))
+
+
+def refine_generator(seed: int, step: int, device) -> torch.Generator:
+    """The split noise's generator for the refine at `step`: seeded from
+    (seed, step) alone, the counterpart of the JAX package's
+    fold_in(key, step), so a run resumed from a checkpoint (or a PLY)
+    draws the noise the uninterrupted run drew."""
+    return torch.Generator(device=device).manual_seed(
+        ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
+
 
 @dataclass
 class StepOutcome:
-    """The step's metrics as device tensors; reading `loss` syncs."""
+    """The step's metrics as device tensors; reading a property syncs,
+    so the CLI reads them only at display or metrics cadence."""
 
     metrics: dict
 
     @property
     def loss(self) -> float:
         return float(self.metrics["loss"])
+
+    @property
+    def psnr(self) -> float:
+        return float(self.metrics["psnr"])
+
+    @property
+    def n_alive(self) -> int:
+        return int(self.metrics["n_alive"])
 
 
 class Trainer:
@@ -158,10 +188,7 @@ class Trainer:
         self.cfg = cfg
         self.renderer = renderer
         self.sampler = InfiniteRandomSampler(len(cameras), seed=cfg.seed)
-        # split noise for refine; it lives on the state's device, which
-        # capacity growth keeps
-        self.generator = torch.Generator(device=state.device).manual_seed(
-            cfg.seed)
+        self.d_total = 1  # cameras per step (the CLI's resume arithmetic)
         self.last_hw = (0, 0)  # the last step's render size (refine's maxwh)
         self.refine_metrics: Optional[dict] = None
         # largest [n_cands, n_isects, n_grads] seen per resolution; the
@@ -249,7 +276,8 @@ class Trainer:
         if do_densification or do_reset:
             self.state, metrics = refine_step(
                 self.state, maxwh, cfg, use_screen_size, do_densification,
-                do_cull_huge, do_reset, generator=self.generator)
+                do_cull_huge, do_reset,
+                generator=refine_generator(cfg.seed, step, self.state.device))
             self.refine_metrics = {k: int(v) for k, v in metrics.items()}
         else:
             # stats are still cleared on every refine boundary (model.cpp:482)

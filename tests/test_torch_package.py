@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import opensplat_tpu_torch
+from opensplat_tpu_torch import cli, io, simple_trainer
 from opensplat_tpu_torch.config import TrainConfig
 from opensplat_tpu_torch.models.gaussians import init_model
 from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
@@ -21,7 +22,7 @@ from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
 from opensplat_tpu_torch.ops.kernels import (_lib, expand, raster,
                                              raster_variants, segsum)
 from opensplat_tpu_torch.ops.kernels.integration import rasterize_fast
-from opensplat_tpu_torch.tools import kbench_raster
+from opensplat_tpu_torch.tools import kbench_raster, make_synthetic_project
 from opensplat_tpu_torch.train import Trainer, render_image, train_step
 
 # one intra-op thread per process: the suite runs one pytest-xdist
@@ -46,25 +47,55 @@ def _clean_env():
     return env
 
 
+_NO_JAX = (
+    "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+    " or m == 'opensplat_tpu' or m.startswith('opensplat_tpu.')]\n"
+    "assert not bad, bad\n"
+)
+
+
 def test_no_jax_imports():
     """A fresh interpreter (this one already holds JAX) imports every
     port module and chip_smoke, then finds no jax / opensplat_tpu."""
     mods = _modules()
-    assert len(mods) >= 20
+    assert len(mods) >= 35
+    for m in ("cli", "simple_trainer", "data.dataset", "data._image",
+              "data.colmap", "data.nerfstudio", "data.opensfm",
+              "data.openmvg", "data.point_io", "native.loader",
+              "io.scene_io", "oracle.np_oracle", "oracle.scene_check",
+              "utils.metrics", "utils.report",
+              "tools.make_synthetic_project"):
+        assert f"opensplat_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'opensplat_tpu' or m.startswith('opensplat_tpu.')]\n"
-        "assert not bad, bad\n"
-        "print('clean', len(sys.modules))\n"
+        + _NO_JAX + "print('clean', len(sys.modules))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert "clean" in out.stdout
+
+
+def test_cli_help_loads_no_jax():
+    """`python -m opensplat_tpu_torch.cli --help` in a fresh interpreter
+    prints the usage and loads neither jax nor opensplat_tpu."""
+    code = (
+        "import runpy, sys\n"
+        "sys.argv = ['opensplat_tpu_torch.cli', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('opensplat_tpu_torch.cli', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        + _NO_JAX
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "--oracle-check" in out.stdout and "--auto-resume" in out.stdout
 
 
 def _tiny_state(device="cpu"):
@@ -118,10 +149,33 @@ def _call_kbench():
                         "--iters", "1"])
 
 
+def _call_cli():
+    cli.main([REPO])
+
+
+def _call_simple_trainer():
+    simple_trainer.main(["--iters", "1", "--points", "10"])
+
+
+def _call_make_synthetic_project():
+    make_synthetic_project.make_project("unused", cams=1, points=10, res=16)
+
+
+def _call_load_ply():
+    io.load_ply("unused.ply")
+
+
+def _call_load_checkpoint():
+    io.load_checkpoint("unused.npz")
+
+
 @pytest.mark.parametrize("call", [_call_init_model, _call_trainer,
                                   _call_train_step, _call_render_forward,
                                   _call_rasterize_fast, _call_render_image,
-                                  _call_kbench])
+                                  _call_kbench, _call_cli,
+                                  _call_simple_trainer,
+                                  _call_make_synthetic_project,
+                                  _call_load_ply, _call_load_checkpoint])
 def test_entry_points_default_to_cuda(no_cuda, call):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
