@@ -73,9 +73,29 @@ Phases (any failure raises and the script exits non-zero):
      --auto-resume trains steps 151-300 again: the scene must equal the
      uninterrupted run's (alive masks equal, rtol 1e-5; it says whether
      bitwise). cv2 and PIL must not have been imported.
+  8. the conformance renderers on phase 3's model (131072 Gaussians, 512
+     px, SH degree 3) and camera 0: (a) render_forward's forward and
+     backward with "fast", "tiled" and "dense", each timed (wall ms
+     between CUDA events, with a synchronize), tiled held to fast by the
+     JAX suite's renderer tolerance (tests/test_rasterize.py:33) and
+     dense by its tiled-vs-dense tolerances (tests/
+     test_rasterize_tiled.py:52-55, 88-91) on the image, final T and
+     every leaf's gradient; dense runs at the headline only if an eighth
+     of the Gaussians, timed first, extrapolates to 60 s or less, else
+     on phase 2's 16384-Gaussian 256 px scene (printed); (b) tiled twice,
+     bitwise equal, launching expand and segsum and neither raster
+     kernel; (c) gsplat_compat.map_gaussian_to_intersects (full-bbox
+     binning, one expand launch) torch.equal to its plain version, all
+     sum(num_tiles_hit) keys kept; (d) render_depth in both modes:
+     finite, alpha = 1 - the tiled final T; (e) Trainer(renderer=
+     "tiled") 3 steps from phase 3's initial state, step 1's loss within
+     rel 1e-3 of the fast Trainer's, steps/s; (f) cli.main --renderer
+     tiled for 4 steps on phase 7's project: exit 0, finite losses, a
+     scene.
 The line before the last is the {"kernels": [...]} table (with each
-training kernel's phase-7 launches as `cli_launches`); the last line
-is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
+training kernel's phase-7 launches as `cli_launches`, and expand's and
+segsum's over phase 8's tiled Trainer steps as `tiled_launches`); the
+last line is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
 """
 from __future__ import annotations
@@ -667,10 +687,11 @@ def refine_phase(n_points, size, n_steps, device):
     return trainer, cams
 
 
-def cli_phase(n_points, size, n_steps, device):
+def cli_phase(n_points, size, n_steps, device, tmp):
     """Phase 7: the CLI end to end. Writes a synthetic nerfstudio project
-    (tools/make_synthetic_project.py: 16 cameras at `size` px, the GT
-    rendered on `device`, sparse.ply = the n_points GT means jittered),
+    into tmp/project (tools/make_synthetic_project.py: 16 cameras at
+    `size` px, the GT rendered on `device`, sparse.ply = the n_points GT
+    means jittered),
     trains it through opensplat_tpu_torch.cli.main for n_steps steps
     (256 then 512 px, SH degree 3 by the end, a densifying refine at a
     sixth of the steps, a validation camera, checkpoints every half,
@@ -681,7 +702,6 @@ def cli_phase(n_points, size, n_steps, device):
     import contextlib
     import io
     import shutil
-    import tempfile
 
     import torch
 
@@ -697,139 +717,489 @@ def cli_phase(n_points, size, n_steps, device):
                 "raster_fwd": raster.rasterize_forward,
                 "raster_bwd": raster.rasterize_backward,
                 "segsum": segsum.segment_sum}
-    with tempfile.TemporaryDirectory() as tmp:
-        proj, out = os.path.join(tmp, "project"), os.path.join(tmp, "out")
-        t0 = time.perf_counter()
-        n_sparse = make_project(proj, cams=16, points=n_points, res=size,
-                                sparse_frac=1.0, jitter=0.02, device=device,
-                                verbose=False)
-        print(f"cli: project written in {time.perf_counter() - t0:.2f} s "
-              f"(16 cameras at {size} px, {n_sparse} sparse points, GT "
-              f"rendered on {device})", flush=True)
-        scene = os.path.join(out, "scene.ply")
-        # a densifying refine needs step < n_steps / 2 (the reference's
-        # stop_split_at): warm-up and refine interval a sixth of the run
-        args = [proj, "-o", scene, "-n", str(n_steps), "--sh-degree", "3",
-                "--sh-degree-interval", str(third), "--num-downscales", "1",
-                "--resolution-schedule", str(third),
-                "--warmup-length", str(sixth), "--refine-every", str(sixth),
-                "--val", "--checkpoint-every", str(half), "--ckpt-dir", out]
-        if not cuda:
-            args.append("--cpu")
+    proj, out = os.path.join(tmp, "project"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    n_sparse = make_project(proj, cams=16, points=n_points, res=size,
+                            sparse_frac=1.0, jitter=0.02, device=device,
+                            verbose=False)
+    print(f"cli: project written in {time.perf_counter() - t0:.2f} s "
+          f"(16 cameras at {size} px, {n_sparse} sparse points, GT "
+          f"rendered on {device})", flush=True)
+    scene = os.path.join(out, "scene.ply")
+    # a densifying refine needs step < n_steps / 2 (the reference's
+    # stop_split_at): warm-up and refine interval a sixth of the run
+    args = [proj, "-o", scene, "-n", str(n_steps), "--sh-degree", "3",
+            "--sh-degree-interval", str(third), "--num-downscales", "1",
+            "--resolution-schedule", str(third),
+            "--warmup-length", str(sixth), "--refine-every", str(sixth),
+            "--val", "--checkpoint-every", str(half), "--ckpt-dir", out]
+    if not cuda:
+        args.append("--cpu")
 
-        def run(extra, label):
-            """cli.main(args + extra): its stdout's lines and the wall
-            time."""
-            buf = io.StringIO()
-            t = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
-                rc = cli.main(args + extra)
-            lines = buf.getvalue().splitlines()
-            if rc != 0:
-                raise AssertionError(f"cli ({label}) returned {rc}:\n"
-                                     + "\n".join(lines))
-            return lines, time.perf_counter() - t
+    def run(extra, label):
+        """cli.main(args + extra): its stdout's lines and the wall
+        time."""
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args + extra)
+        lines = buf.getvalue().splitlines()
+        if rc != 0:
+            raise AssertionError(f"cli ({label}) returned {rc}:\n"
+                                 + "\n".join(lines))
+        return lines, time.perf_counter() - t
 
-        def line(lines, part):
-            found = [ln for ln in lines if part in ln]
-            if not found:
-                raise AssertionError(f"cli printed no {part!r} line:\n"
-                                     + "\n".join(lines[-20:]))
-            return found[0]
+    def line(lines, part):
+        found = [ln for ln in lines if part in ln]
+        if not found:
+            raise AssertionError(f"cli printed no {part!r} line:\n"
+                                 + "\n".join(lines[-20:]))
+        return found[0]
 
-        for fn in wrappers.values():
-            fn.launches = 0
-        mfile = os.path.join(tmp, "metrics.jsonl")
-        lines, wall = run(["--oracle-check", "--metrics-file", mfile], "run")
-        launches = {k: fn.launches for k, fn in wrappers.items()}
-        print(f"cli: {line(lines, 'Using ')}; {line(lines, 'Loaded ')}; "
-              f"{n_steps} steps in {wall:.2f} s (whole run)", flush=True)
-        recs = [json.loads(r) for r in open(mfile)]
-        steps = {r["step"]: r for r in recs if r["type"] == "step"}
-        refines = [r for r in recs if r["type"] == "refine"]
-        losses = [steps[k]["loss"] for k in sorted(steps)]
-        if len(losses) != n_steps or not all(np.isfinite(losses)):
-            raise AssertionError(f"cli: {len(losses)} step records, "
-                                 f"nonfinite: {not all(np.isfinite(losses))}")
-        print("cli steps/s (metrics file, rolling 50 steps, every step "
-              "read back) and the Gaussians alive at that step: "
-              + json.dumps({
-                  f"{px} px, step {k}": {
-                      "steps_per_sec": steps[k]["steps_per_sec"],
-                      "n_gaussians": steps[k]["n_gaussians"]}
-                  for px, k in ((size // 2, third - 10),
-                                (size, 2 * third - 10),
-                                (size, n_steps - 10))}), flush=True)
-        psnrs = [steps[k]["psnr"] for k in sorted(steps)]
-        print(f"cli loss: steps 1-10 mean {np.mean(losses[:10]):.5f}, last "
-              f"10 mean {np.mean(losses[-10:]):.5f}; train PSNR last 10 "
-              f"mean {np.mean(psnrs[-10:]):.3f} dB")
-        if not np.mean(losses[-10:]) < np.mean(losses[:10]):
-            raise AssertionError("cli: the loss did not fall")
-        dens = [r for r in refines
-                if r.get("n_splits", 0) + r.get("n_dups", 0)]
-        if not dens:
-            raise AssertionError(f"cli: no densifying refine: {refines}")
-        for r in refines:
-            print(f"cli refine at step {r['step']}: Gaussians "
-                  f"{steps[r['step']]['n_gaussians']} -> {r['n_alive']}; "
-                  + json.dumps({k: v for k, v in r.items()
-                                if k not in ("type", "step", "n_alive")}))
-        print(f"cli Gaussians: {n_sparse} at step 1, "
-              f"{steps[n_steps]['n_gaussians']} at step {n_steps}")
-        val = line(lines, "validation loss:")
-        vloss = float(val.split("validation loss:")[1].split()[0])
-        vpsnr = float(val.split("(PSNR ")[1].split()[0])
-        oracle = line(lines, "oracle-check")
-        opsnr = float(oracle.split("PSNR ")[1].split()[0])
-        print(f"cli validation: loss {vloss:.6f}, PSNR {vpsnr:.3f} dB "
-              f"({val.split()[0]})")
-        print(f"cli {oracle}", flush=True)
-        if not (np.isfinite(vloss) and opsnr >= 30.0):
-            raise AssertionError(f"cli: validation loss {vloss}, oracle "
-                                 f"PSNR {opsnr} dB (needs >= 30)")
-        files = sorted(os.listdir(out))
-        print("cli files: " + ", ".join(
-            f"{f} ({os.path.getsize(os.path.join(out, f))} B)" for f in files))
-        for f in ("scene.ply", "cameras.json", f"ckpt_{half}.npz",
-                  f"ckpt_{n_steps}.npz"):
-            if f not in files:
-                raise AssertionError(f"cli: {f} not written")
-        print("cli kernel launches over the run (training steps, val and "
-              "oracle renders): " + json.dumps(launches), flush=True)
-        for k, n in launches.items():
-            # (on CPU tensors, in a rehearsal, the wrappers count nothing)
-            if cuda and n < n_steps:
-                raise AssertionError(f"cli: {k} launched {n} times in "
-                                     f"{n_steps} steps")
+    for fn in wrappers.values():
+        fn.launches = 0
+    mfile = os.path.join(tmp, "metrics.jsonl")
+    lines, wall = run(["--oracle-check", "--metrics-file", mfile], "run")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    print(f"cli: {line(lines, 'Using ')}; {line(lines, 'Loaded ')}; "
+          f"{n_steps} steps in {wall:.2f} s (whole run)", flush=True)
+    recs = [json.loads(r) for r in open(mfile)]
+    steps = {r["step"]: r for r in recs if r["type"] == "step"}
+    refines = [r for r in recs if r["type"] == "refine"]
+    losses = [steps[k]["loss"] for k in sorted(steps)]
+    if len(losses) != n_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"cli: {len(losses)} step records, "
+                             f"nonfinite: {not all(np.isfinite(losses))}")
+    print("cli steps/s (metrics file, rolling 50 steps, every step "
+          "read back) and the Gaussians alive at that step: "
+          + json.dumps({
+              f"{px} px, step {k}": {
+                  "steps_per_sec": steps[k]["steps_per_sec"],
+                  "n_gaussians": steps[k]["n_gaussians"]}
+              for px, k in ((size // 2, third - 10),
+                            (size, 2 * third - 10),
+                            (size, n_steps - 10))}), flush=True)
+    psnrs = [steps[k]["psnr"] for k in sorted(steps)]
+    print(f"cli loss: steps 1-10 mean {np.mean(losses[:10]):.5f}, last "
+          f"10 mean {np.mean(losses[-10:]):.5f}; train PSNR last 10 "
+          f"mean {np.mean(psnrs[-10:]):.3f} dB")
+    if not np.mean(losses[-10:]) < np.mean(losses[:10]):
+        raise AssertionError("cli: the loss did not fall")
+    dens = [r for r in refines
+            if r.get("n_splits", 0) + r.get("n_dups", 0)]
+    if not dens:
+        raise AssertionError(f"cli: no densifying refine: {refines}")
+    for r in refines:
+        print(f"cli refine at step {r['step']}: Gaussians "
+              f"{steps[r['step']]['n_gaussians']} -> {r['n_alive']}; "
+              + json.dumps({k: v for k, v in r.items()
+                            if k not in ("type", "step", "n_alive")}))
+    print(f"cli Gaussians: {n_sparse} at step 1, "
+          f"{steps[n_steps]['n_gaussians']} at step {n_steps}")
+    val = line(lines, "validation loss:")
+    vloss = float(val.split("validation loss:")[1].split()[0])
+    vpsnr = float(val.split("(PSNR ")[1].split()[0])
+    oracle = line(lines, "oracle-check")
+    opsnr = float(oracle.split("PSNR ")[1].split()[0])
+    print(f"cli validation: loss {vloss:.6f}, PSNR {vpsnr:.3f} dB "
+          f"({val.split()[0]})")
+    print(f"cli {oracle}", flush=True)
+    if not (np.isfinite(vloss) and opsnr >= 30.0):
+        raise AssertionError(f"cli: validation loss {vloss}, oracle "
+                             f"PSNR {opsnr} dB (needs >= 30)")
+    files = sorted(os.listdir(out))
+    print("cli files: " + ", ".join(
+        f"{f} ({os.path.getsize(os.path.join(out, f))} B)" for f in files))
+    for f in ("scene.ply", "cameras.json", f"ckpt_{half}.npz",
+              f"ckpt_{n_steps}.npz"):
+        if f not in files:
+            raise AssertionError(f"cli: {f} not written")
+    print("cli kernel launches over the run (training steps, val and "
+          "oracle renders): " + json.dumps(launches), flush=True)
+    for k, n in launches.items():
+        # (on CPU tensors, in a rehearsal, the wrappers count nothing)
+        if cuda and n < n_steps:
+            raise AssertionError(f"cli: {k} launched {n} times in "
+                                 f"{n_steps} steps")
 
-        # resume: the last checkpoint and the scene are gone (the crash)
-        ref = os.path.join(tmp, "uninterrupted.ply")
-        shutil.move(scene, ref)
-        os.remove(os.path.join(out, f"ckpt_{n_steps}.npz"))
-        lines, wall = run(["--auto-resume"], "resume")
-        print(f"cli resume: {line(lines, 'Resuming from')}; "
-              f"{n_steps - half} steps in {wall:.2f} s", flush=True)
-        bitwise = open(ref, "rb").read() == open(scene, "rb").read()
-        a, _ = load_ply(ref, device="cpu")
-        b, _ = load_ply(scene, device="cpu")
-        if not torch.equal(a.alive, b.alive):
-            raise AssertionError("cli resume: alive masks differ")
-        worst = {}
-        for name in PARAM_NAMES:
-            x, y = getattr(a.params, name), getattr(b.params, name)
-            worst[name] = float((x - y).abs().max()) if x.numel() else 0.0
-            if not torch.allclose(y, x, rtol=1e-5, atol=1e-6):
-                raise AssertionError(f"cli resume: {name} differs from the "
-                                     f"uninterrupted run by {worst[name]}")
-        print(f"cli resume: the scene equals the uninterrupted run's "
-              f"({'bitwise' if bitwise else 'within rtol 1e-5'}; "
-              f"{int(a.alive.sum())} Gaussians; max abs diff "
-              + json.dumps(worst) + ")", flush=True)
+    # resume: the last checkpoint and the scene are gone (the crash)
+    ref = os.path.join(tmp, "uninterrupted.ply")
+    shutil.move(scene, ref)
+    os.remove(os.path.join(out, f"ckpt_{n_steps}.npz"))
+    lines, wall = run(["--auto-resume"], "resume")
+    print(f"cli resume: {line(lines, 'Resuming from')}; "
+          f"{n_steps - half} steps in {wall:.2f} s", flush=True)
+    bitwise = open(ref, "rb").read() == open(scene, "rb").read()
+    a, _ = load_ply(ref, device="cpu")
+    b, _ = load_ply(scene, device="cpu")
+    if not torch.equal(a.alive, b.alive):
+        raise AssertionError("cli resume: alive masks differ")
+    worst = {}
+    for name in PARAM_NAMES:
+        x, y = getattr(a.params, name), getattr(b.params, name)
+        worst[name] = float((x - y).abs().max()) if x.numel() else 0.0
+        if not torch.allclose(y, x, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"cli resume: {name} differs from the "
+                                 f"uninterrupted run by {worst[name]}")
+    print(f"cli resume: the scene equals the uninterrupted run's "
+          f"({'bitwise' if bitwise else 'within rtol 1e-5'}; "
+          f"{int(a.alive.sum())} Gaussians; max abs diff "
+          + json.dumps(worst) + ")", flush=True)
     for mod in ("cv2", "PIL"):
         if mod in sys.modules:
             raise AssertionError(f"phase 7 imported {mod}")
     return launches
+
+
+def bulk_close(got, want, rel_tol=1e-3, bulk=0.99, max_rel=0.05):
+    """The JAX suite's renderer tolerance (tests/test_rasterize.py:33):
+    rel_tol on `bulk` of the entries, max_rel everywhere (relative to
+    max(|want|, 1e-3 of its scale)), norms within 2e-3. Returns the
+    failure, or None, and (share within rel_tol, max rel)."""
+    got = np.asarray(got, np.float64).reshape(np.shape(want))
+    want = np.asarray(want, np.float64)
+    scale = np.abs(want).max() + 1e-12
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-3 * scale)
+    ok, worst = float((rel <= rel_tol).mean()), float(rel.max())
+    n1, n2 = np.linalg.norm(got), np.linalg.norm(want)
+    fail = None
+    if ok < bulk:
+        fail = f"only {ok:.4f} within rtol {rel_tol}"
+    elif worst > max_rel:
+        fail = f"max rel err {worst:.4f}"
+    elif abs(n1 - n2) > 2e-3 * max(n2, 1e-12):
+        fail = f"norms {n1} vs {n2}"
+    return fail, (ok, worst)
+
+
+def dense_close(got, want, kind):
+    """The JAX suite's tolerances between its tiled and dense renderers
+    (tests/test_rasterize_tiled.py:52-55, 88-91): images within 1e-3 on
+    98% of pixels and 3e-2 everywhere, final T within 3e-2; gradients
+    within 1e-2 (relative to max(|want|, 1e-2 of its scale)) on 97% and
+    norms within 2e-2. Returns the failure, or None, and the readings."""
+    got = np.asarray(got, np.float64).reshape(np.shape(want))
+    want = np.asarray(want, np.float64)
+    if kind == "image":
+        d = np.abs(got - want).max(-1)
+        ok, worst = float((d <= 1e-3).mean()), float(d.max())
+        fail = (None if ok >= 0.98 and worst <= 3e-2
+                else f"{1 - ok:.4f} of pixels off, max {worst}")
+    elif kind == "final_T":
+        ok, worst = 1.0, float(np.abs(got - want).max())
+        fail = None if worst <= 3e-2 else f"max diff {worst}"
+    else:
+        scale = np.abs(want).max() + 1e-12
+        rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-2 * scale)
+        ok, worst = float((rel <= 1e-2).mean()), float(rel.max())
+        n1, n2 = np.linalg.norm(got), np.linalg.norm(want)
+        fail = None
+        if abs(n1 - n2) > 2e-2 * max(n2, 1e-9):
+            fail = f"norms {n1} vs {n2}"
+        elif ok < 0.97:
+            fail = f"{1 - ok:.4f} off"
+    return fail, (ok, worst)
+
+
+def render_grads(params, alive, cam, sh_deg, renderer, seed):
+    """render_forward with `renderer`, then the gradients of one fixed
+    scalar of the image and final T (weights from `seed`) with respect to
+    every parameter leaf. Returns (image, final T, {leaf: gradient}, the
+    forward's ms, the backward's ms) — wall ms between CUDA events around
+    each pass, with a synchronize (host clock on the CPU)."""
+    import torch
+
+    from opensplat_tpu_torch.models.gaussians import (PARAM_NAMES,
+                                                      GaussianParams)
+    from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
+                                                        render_forward)
+
+    dev = alive.device
+    h = w = cam.width
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    w_img = torch.randn((h, w, 3), generator=gen, device=dev)
+    w_t = torch.randn((h, w), generator=gen, device=dev)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.as_dict().items()}
+
+    def fwd():
+        return render_forward(
+            GaussianParams(**leaves), alive,
+            torch.as_tensor(cam.cam_to_world, device=dev), cam.fx, cam.fy,
+            cam.cx, cam.cy, h, w, sh_deg,
+            torch.tensor(DEFAULT_BACKGROUND, device=dev), renderer=renderer,
+            device=dev)
+
+    out, fwd_ms = wall_ms(fwd, dev)
+    loss = torch.sum(out.rgb * w_img) + torch.sum(out.final_t * w_t)
+    grads, bwd_ms = wall_ms(lambda: torch.autograd.grad(
+        loss, [leaves[k] for k in PARAM_NAMES]), dev)
+    return (out.rgb.detach(), out.final_t.detach(),
+            dict(zip(PARAM_NAMES, grads)), fwd_ms, bwd_ms)
+
+
+def wall_ms(fn, dev):
+    """(fn(), its wall ms): CUDA events around it and a synchronize on
+    the card, the host clock on the CPU."""
+    import torch
+
+    if torch.device(dev).type != "cuda":
+        t = time.perf_counter()
+        r = fn()
+        return r, (time.perf_counter() - t) * 1e3
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    s.record()
+    r = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return r, s.elapsed_time(e)
+
+
+def hold(label, ref, other, check):
+    """Image, final T and each leaf's gradient of `other` against `ref`
+    (render_grads results) by `check` (bulk_close or dense_close);
+    prints the readings, raises on a failure."""
+    pairs = [("image", ref[0], other[0]), ("final_T", ref[1], other[1])]
+    pairs += [(k, ref[2][k], other[2][k]) for k in ref[2]]
+    readings, fails = {}, []
+    for name, a, b in pairs:
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+        if check is dense_close:
+            fail, r = dense_close(b, a, name if name in ("image", "final_T")
+                                  else "grad")
+        else:
+            fail, r = bulk_close(b, a)
+        readings[name] = [round(r[0], 5), float(f"{r[1]:.3g}")]
+        if fail:
+            fails.append(f"{name}: {fail}")
+    print(f"conformance {label} (share within tolerance, worst): "
+          + json.dumps(readings), flush=True)
+    if fails:
+        raise AssertionError(f"conformance {label}: " + "; ".join(fails))
+
+
+def anisotropic(params, seed=1):
+    """`params` with scales moved by uniform +-0.5 in log space (as
+    tests/test_torch_train_step.py does), so that rotations carry real
+    gradients: with isotropic scales the render does not depend on the
+    rotation, and the quats' gradients are rounding noise."""
+    import torch
+
+    d = np.random.default_rng(seed).uniform(-0.5, 0.5, params.scales.shape)
+    return type(params)(**{**params.as_dict(), "scales": params.scales
+                           + torch.as_tensor(d.astype(np.float32),
+                                             device=params.scales.device)})
+
+
+def conformance_phase(state, cam, project, device, fresh_scene, card):
+    """Phase 8: the conformance renderers (dense, tiled), render_depth,
+    gsplat_compat's full-bbox binning, Trainer(renderer="tiled") and the
+    CLI's --renderer tiled, on the card. `state` and `cam` are the
+    headline model's; `project` phase 7's project; fresh_scene() makes
+    phase 3's untrained state and cameras anew; `card` (nvidia-smi's
+    name and power limit) is printed beside every time. Raises on a
+    failed check;
+    returns the expansion's and the segment sum's launches over the
+    tiled Trainer's steps (this slice's main path)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from opensplat_tpu_torch import cli, gsplat_compat
+    from opensplat_tpu_torch.config import TrainConfig
+    from opensplat_tpu_torch.models.splat_model import render_depth
+    from opensplat_tpu_torch.ops.camera import camera_matrices
+    from opensplat_tpu_torch.ops.kernels import expand, raster, segsum
+    from opensplat_tpu_torch.train import Trainer
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    c = state.alive.shape[0]
+    size = cam.width
+    counted = {"expand": expand.expand, "segsum": segsum.segment_sum,
+               "raster_fwd": raster.rasterize_forward,
+               "raster_bwd": raster.rasterize_backward}
+
+    def zero():
+        for fn in counted.values():
+            fn.launches = 0
+
+    def read():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    # (a) each renderer's forward and backward, held to the fast path
+    params = anisotropic(state.params)
+    pa = (params, state.alive, cam, 3)
+    fast = render_grads(*pa, "fast", 8)
+    zero()
+    tiled = render_grads(*pa, "tiled", 8)
+    tiled_counts = read()
+    clock = ("wall, CUDA events" if cuda else "wall, host clock") + (
+        f"; {card}")
+    for name, r in (("fast", fast), ("tiled", tiled)):
+        print(f"conformance {name}: {c} g, {size} px, forward "
+              f"{r[3]:.1f} ms, backward {r[4]:.1f} ms ({clock})", flush=True)
+    hold(f"tiled against fast ({c} g, {size} px; rel 1e-3 on 99%, max rel "
+         "0.05, norms 2e-3)", fast, tiled, bulk_close)
+    # dense is O(N x pixels): time it on an eighth of the Gaussians first
+    sub = c // 8
+    est = render_grads(type(params)(**{
+        k: v[:sub] for k, v in params.as_dict().items()}),
+        state.alive[:sub], cam, 3, "dense", 8)
+    est_s = (est[3] + est[4]) * (c / sub) / 1e3
+    print(f"conformance dense: {sub} g at {size} px took "
+          f"{est[3]:.0f} + {est[4]:.0f} ms; at {c} g about {est_s:.1f} s",
+          flush=True)
+    del est
+    if est_s <= 60.0:
+        dense = render_grads(*pa, "dense", 8)
+        ref, label = fast, f"{c} g, {size} px"
+    else:  # the cut: phase 2's scene
+        small, small_cams = fresh_scene(16384, 256)
+        sa = (anisotropic(small.params), small.alive, small_cams[0], 3)
+        ref = render_grads(*sa, "fast", 8)
+        dense = render_grads(*sa, "dense", 8)
+        label = (f"16384 g, 256 px: cut from {c} g, {size} px, whose "
+                 f"estimate {est_s:.1f} s exceeds 60 s")
+        del small, small_cams
+    print(f"conformance dense: {label}, forward {dense[3]:.1f} ms, backward "
+          f"{dense[4]:.1f} ms ({clock})", flush=True)
+    hold(f"dense against fast ({label}; the JAX suite's tiled-vs-dense "
+         "tolerances)", ref, dense, dense_close)
+    del dense, ref
+
+    # (b) the tiled path twice: bitwise equal; it ran the two kernels
+    zero()
+    again = render_grads(*pa, "tiled", 8)
+    counts_b = read()
+    named = [("image", tiled[0], again[0]), ("final T", tiled[1], again[1])]
+    named += [(f"grad {k}", tiled[2][k], again[2][k]) for k in tiled[2]]
+    for name, x, y in named:
+        if not torch.equal(x, y):
+            raise AssertionError(
+                f"tiled not deterministic: {name} differs at "
+                f"{int((x != y).sum())} of {x.numel()} places")
+    print("conformance determinism: tiled forward and backward run twice; "
+          "image, final T and every leaf's gradient bitwise equal; "
+          "launches in one run " + json.dumps(counts_b)
+          + " (the first: " + json.dumps(tiled_counts) + ")", flush=True)
+    if cuda and (counts_b["expand"] < 1 or counts_b["segsum"] < 1
+                 or counts_b["raster_fwd"] or counts_b["raster_bwd"]):
+        raise AssertionError(f"tiled path launches: {counts_b}")
+    del again
+
+    # (c) gsplat's full-bbox intersections against the plain version
+    with torch.no_grad():
+        p = params
+        viewmat, full_proj, _ = camera_matrices(
+            torch.as_tensor(cam.cam_to_world, device=dev), cam.fx, cam.fy,
+            size, size)
+        _, xys, depths, radii, _, nth = gsplat_compat.project_gaussians_forward(
+            p.means, torch.exp(p.scales), 1.0,
+            p.quats / torch.linalg.norm(p.quats, dim=-1, keepdim=True),
+            viewmat, full_proj, cam.fx, cam.fy, cam.cx, cam.cy, size, size)
+        cum = torch.cumsum(nth.long(), 0)
+        total = int(cum[-1])
+        tb = ((size + 15) // 16, (size + 15) // 16, 1)
+        args = (c, total, xys, depths, radii, cum, tb)
+        expand.expand.launches = 0
+        keys, ids = gsplat_compat.map_gaussian_to_intersects(*args)
+        n_exp = expand.expand.launches
+        pk, pi = gsplat_compat.map_gaussian_to_intersects(
+            *[a.cpu() if torch.is_tensor(a) else a for a in args])
+        kept = int((keys >> 32 < tb[0] * tb[1]).sum())
+    if not (torch.equal(keys.cpu(), pk) and torch.equal(ids.cpu(), pi)):
+        raise AssertionError("map_gaussian_to_intersects differs from its "
+                             "plain version")
+    if kept != total or (cuda and n_exp != 1):
+        raise AssertionError(f"full-bbox binning: {kept} keys kept of "
+                             f"{total}, {n_exp} expand launches")
+    print(f"conformance gsplat map_gaussian_to_intersects: {total} "
+          f"intersections (= sum(num_tiles_hit)), keys and ids torch.equal "
+          f"to the plain version; expand launched {n_exp}x", flush=True)
+
+    # (d) render_depth in both modes: finite, alpha = 1 - tiled final T
+    for mode in ("expected", "accumulated"):
+        with torch.no_grad():
+            (depth, alpha), ms = wall_ms(lambda: render_depth(
+                params, state.alive,
+                torch.as_tensor(cam.cam_to_world, device=dev), cam.fx,
+                cam.fy, cam.cx, cam.cy, size, size, mode=mode, device=dev),
+                dev)
+        diff = float((alpha - (1.0 - tiled[1])).abs().max())
+        if not (bool(torch.isfinite(depth).all()) and diff <= 1e-6):
+            raise AssertionError(f"render_depth {mode}: finite "
+                                 f"{bool(torch.isfinite(depth).all())}, "
+                                 f"alpha off 1 - final T by {diff}")
+        hit = depth[alpha > 0.5]
+        print(f"conformance render_depth {mode}: {ms:.1f} ms ({clock}); "
+              f"depth "
+              f"{float(hit.min()):.4f}..{float(hit.max()):.4f} where alpha "
+              f"> 0.5 ({hit.numel()} px); alpha vs 1 - final T max diff "
+              f"{diff:.3g}", flush=True)
+    del tiled, fast
+
+    # (e) Trainer(renderer="tiled") from phase 3's initial state
+    cfg = TrainConfig(num_downscales=0, sh_degree_interval=1,
+                      capacity_round=131072)
+    st_fast, cams_fast = fresh_scene(c, size)
+    loss_fast = Trainer(st_fast, cams_fast, cfg, device=dev).run_step(1).loss
+    del st_fast, cams_fast
+    st, cams = fresh_scene(c, size)
+    tr = Trainer(st, cams, cfg, renderer="tiled", device=dev)
+    zero()
+    losses = [tr.run_step(1).loss]
+
+    def steps_2_3():
+        for k in (2, 3):
+            losses.append(tr.run_step(k).loss)
+
+    _, ms = wall_ms(steps_2_3, dev)
+    counts_e = read()
+    rel = abs(losses[0] - loss_fast) / abs(loss_fast)
+    print(f"conformance Trainer(renderer='tiled'): {c} g, {size} px, "
+          f"losses {[round(v, 6) for v in losses]}; step 1 against the "
+          f"fast Trainer's {loss_fast:.6f}: rel {rel:.3g}; steps 2-3 at "
+          f"{2e3 / ms:.3f} steps/s ({card}); launches "
+          + json.dumps(counts_e),
+          flush=True)
+    if not (np.all(np.isfinite(losses)) and rel <= 1e-3):
+        raise AssertionError(f"tiled Trainer: losses {losses}, step 1 rel "
+                             f"{rel} against fast")
+    if cuda and (counts_e["expand"] < 3 or counts_e["segsum"] < 3
+                 or counts_e["raster_fwd"] or counts_e["raster_bwd"]):
+        raise AssertionError(f"tiled Trainer launches: {counts_e}")
+    del tr, st, cams
+
+    # (f) the CLI with --renderer tiled on phase 7's project
+    out = os.path.join(os.path.dirname(project), "tiled_out", "scene.ply")
+    mfile = os.path.join(os.path.dirname(project), "tiled.jsonl")
+    buf = io.StringIO()
+    zero()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([project, "-o", out, "-n", "4", "--renderer", "tiled",
+                       "--num-downscales", "1", "--sh-degree", "3",
+                       "--metrics-file", mfile] + ([] if cuda else ["--cpu"]))
+    wall = time.perf_counter() - t
+    counts_f = read()
+    losses = [json.loads(r)["loss"] for r in open(mfile)
+              if json.loads(r)["type"] == "step"]
+    if rc != 0 or not os.path.exists(out) or len(losses) != 4 or not all(
+            np.isfinite(losses)):
+        raise AssertionError(f"cli --renderer tiled: rc {rc}, losses "
+                             f"{losses}, scene {os.path.exists(out)}:\n"
+                             + buf.getvalue()[-2000:])
+    if cuda and (counts_f["expand"] < 4 or counts_f["segsum"] < 4):
+        raise AssertionError(f"cli --renderer tiled launches: {counts_f}")
+    print(f"conformance cli --renderer tiled: 4 steps at {size // 2} px in "
+          f"{wall:.2f} s (whole run; {card}), losses {[round(v, 6) for v in losses]},"
+          f" scene {os.path.getsize(out)} B; launches "
+          + json.dumps(counts_f), flush=True)
+    return {k: counts_e[k] for k in ("expand", "segsum")}
 
 
 def check_variants(stream, label):
@@ -1138,8 +1508,16 @@ def main():
     errs["kbench_fwd"] = v_errs["full"]
 
     # phase 7: the CLI end to end on a synthetic project at the headline
-    # model's width, resume included
-    cli_launches = cli_phase(131072, 512, 300, "cuda")
+    # model's width, resume included; phase 8: the conformance renderers
+    # on phase 3's model and camera, and on phase 7's project
+    import tempfile
+
+    del inp, g_rec, sargs, plain
+    with tempfile.TemporaryDirectory() as work:
+        cli_launches = cli_phase(131072, 512, 300, "cuda", work)
+        tiled_launches = conformance_phase(
+            trainer.state, cams[0], os.path.join(work, "project"), "cuda",
+            lambda n, size: make_scene(n, size, 0, "cuda"), smi)
 
     table = []
     for k, (src, rep) in KERNELS.items():
@@ -1151,6 +1529,7 @@ def main():
             "library_ms": library_ms if k == "segsum" else None,
             "device_ms": dev_ms.get(k, (None,))[0],
             "cli_launches": cli_launches.get(k),
+            "tiled_launches": tiled_launches.get(k),
         })
     for row in table:
         print(f"  {row['name']:<10} {row['ms']:.4f} ms  device "

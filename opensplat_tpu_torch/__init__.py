@@ -4,11 +4,16 @@ Same layout and module names as the JAX package, so every counterpart is
 easy to find:
 
   train.py ............. Trainer, train_step (one optimisation step)
-  models/ .............. GaussianParams/TrainState, render_forward, stats
+  models/ .............. GaussianParams/TrainState, render_forward,
+                         render_depth, stats
   optim/adam.py ........ masked Adam
-  ops/ ................. camera, projection, SH, binning, SSIM
+  ops/ ................. camera, projection, SH, binning, SSIM, and the
+                         conformance renderers (rasterize.py dense,
+                         rasterize_tiled.py tiled)
   ops/kernels/ ......... the hand-written Hopper kernels (csrc/*.cu) with
                          their plain PyTorch versions and launch counters
+  gsplat_compat.py ..... the reference's 11 gsplat entry points
+  cli.py, simple_trainer.py, tools/, data/, io/, oracle/, utils/
 
 Entry points default to device="cuda" and raise when CUDA is missing;
 pass device="cpu" to run the plain PyTorch versions of the kernels. The

@@ -9,9 +9,11 @@ oracle check and the validation loss.
 
 It trains on CUDA unless given --cpu (then the kernels' plain PyTorch
 versions run); without a card it fails, never falling back to the CPU.
-The fast renderer is the one ported: --renderer auto, pallas and fast
-select it, dense and tiled exit with a message, as do the parallel
-flags (--distributed, --data-parallel, --model-parallel).
+--renderer auto, pallas and fast select the port's kernels; dense and
+tiled the conformance renderers (ops/rasterize.py,
+ops/rasterize_tiled.py). The parallel flags (--distributed,
+--data-parallel, --model-parallel) exit with a message: the port trains
+on one device.
 
     python -m opensplat_tpu_torch.cli <project> -o out/scene.ply
 """
@@ -24,9 +26,6 @@ import re
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-
-UNPORTED_RENDERERS = ("dense", "tiled")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -76,7 +75,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--renderer", default="auto",
                    choices=["auto", "dense", "tiled", "pallas", "fast"],
                    help="auto, pallas and fast run the port's CUDA kernels; "
-                   "dense and tiled are not ported yet")
+                   "dense and tiled the conformance renderers")
     p.add_argument("--capacity", type=int, default=None,
                    help="Fixed Gaussian capacity (default: auto)")
     p.add_argument("--distributed", action="store_true",
@@ -121,10 +120,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     """Exit with a message for what the port does not have yet."""
-    if args.renderer in UNPORTED_RENDERERS:
-        raise SystemExit(
-            f"--renderer {args.renderer}: the conformance renderers are not "
-            "ported yet; use --renderer auto (the port's CUDA kernels)")
     for flag, value in (("--distributed", args.distributed),
                         ("--data-parallel", args.data_parallel),
                         ("--model-parallel", args.model_parallel)):
@@ -132,6 +127,12 @@ def _refuse_unported(args) -> None:
             raise SystemExit(
                 f"{flag}: multi-device training is not ported yet; the port "
                 "trains on one device (drop the flag)")
+
+
+def pick_renderer(choice: str) -> str:
+    """The renderer a --renderer choice names: auto and pallas are the
+    port's kernels ("fast") on every device."""
+    return "fast" if choice in ("auto", "pallas") else choice
 
 
 def _latest_checkpoint(ckpt_dir: str) -> str:
@@ -283,7 +284,8 @@ def main(argv=None) -> int:
             device=device,
         )
 
-    trainer = Trainer(state, cams, cfg, renderer="fast", device=device)
+    trainer = Trainer(state, cams, cfg, renderer=pick_renderer(cfg.renderer),
+                      device=device)
     if resume_path:
         # replay the camera sampler to the checkpoint's position so the
         # resumed run continues the uninterrupted run's camera order; a

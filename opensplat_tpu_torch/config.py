@@ -60,7 +60,7 @@ class TrainConfig:
     capacity: Optional[int] = None  # fixed Gaussian capacity; None = auto
     capacity_mult: float = 1.5  # initial capacity = mult * n_points
     capacity_round: int = 4096  # capacities rounded to a multiple of this
-    renderer: str = "auto"  # read by the CLI (a later slice)
+    renderer: str = "auto"  # the CLI's --renderer (cli.pick_renderer)
     seed: int = 42
     checkpoint_every: int = -1  # native (orbax-style) checkpoints
     ckpt_dir: str = ""

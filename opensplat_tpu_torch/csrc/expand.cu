@@ -12,7 +12,11 @@
 // keep), conic A/B/C and s_max = ln(opacity / alpha_thresh) rounded to
 // bf16 (round to nearest even), 0.13 px position slack, the 2.1 * 2^-8 *
 // S_corner compensation and the -0.05 margin — so the kept set is
-// bit-identical to the JAX package's.
+// bit-identical to the JAX package's. With cull = 0 (the JAX package's
+// pallas_expand_bin(..., cull=False), the reference's tile-bbox
+// intersections, forward.cu:107-143) every row keeps and s_max is not
+// read; the kernel is templated on the mode, so the culling build is the
+// same code as without the option.
 //
 // Bound on this card: bytes. It reads ~56 B per Gaussian and writes 12 B
 // per candidate row; the cull is ~70 float operations per row. A thread
@@ -91,6 +95,7 @@ struct Smem {
   int sat[G];     // saturated mean: every row keeps
 };
 
+template <bool CULL>
 __global__ void __launch_bounds__(THREADS) expand_kernel(
     int C, const int* __restrict__ cnt, const int64_t* __restrict__ starts,
     const int* __restrict__ tile_min, const int* __restrict__ tile_max,
@@ -125,7 +130,7 @@ __global__ void __launch_bounds__(THREADS) expand_kernel(
                                bf16_round(conics[3 * g]),
                                bf16_round(conics[3 * g + 1]));
       S.cs[tid] = make_float2(bf16_round(conics[3 * g + 2]),
-                              bf16_round(s_max[g]));
+                              CULL ? bf16_round(s_max[g]) : 0.0f);
       if (tid == n_g - 1) s_rows = off + n;
     }
     // Gaussians past C start past the window's end and own no rows
@@ -152,7 +157,7 @@ __global__ void __launch_bounds__(THREADS) expand_kernel(
       const int bw = S.bw[j];
       const int ty = S.y0[j] + off / bw;
       const int tx = S.x0[j] + off % bw;
-      keep = S.sat[j] != 0;
+      keep = !CULL || S.sat[j] != 0;
       if (!keep) {
         const float4 q = S.geo[j];
         const float2 cs = S.cs[j];
@@ -180,11 +185,12 @@ __global__ void __launch_bounds__(THREADS) expand_kernel(
 OSK_API int osk_expand(int C, const void* cnt, const void* starts,
                        const void* tile_min, const void* tile_max,
                        const void* depths, const void* xys, const void* conics,
-                       const void* s_max, int tb_x, int n_tiles, void* keys,
-                       void* gids, void* kept, void* stream) {
+                       const void* s_max, int tb_x, int n_tiles, int cull,
+                       void* keys, void* gids, void* kept, void* stream) {
   if (C > 0) {
-    expand_kernel<<<(C + G - 1) / G, THREADS, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+    auto kernel = cull ? expand_kernel<true> : expand_kernel<false>;
+    kernel<<<(C + G - 1) / G, THREADS, 0,
+             static_cast<cudaStream_t>(stream)>>>(
         C, static_cast<const int*>(cnt), static_cast<const int64_t*>(starts),
         static_cast<const int*>(tile_min), static_cast<const int*>(tile_max),
         static_cast<const float*>(depths), static_cast<const float*>(xys),
@@ -201,5 +207,5 @@ OSK_API int osk_expand_info(void* out) {
   int* o = static_cast<int*>(out);
   o[0] = G;
   o[1] = THREADS;
-  return osk::kernel_info(expand_kernel, THREADS, 0, o + 2);
+  return osk::kernel_info(expand_kernel<true>, THREADS, 0, o + 2);
 }

@@ -1,10 +1,11 @@
 """Scene forward pass: camera -> projection -> SH colours -> rasterize.
 
-Counterpart of opensplat_tpu/models/splat_model.py::render_forward
-(Model::forward, model.cpp:83-225) on the kernel path. The gradient of
-the loss with respect to the screen-space centres (xys.retain_grad() in
-the reference, model.cpp:171) comes through an additive `xys_shift`, as
-in the JAX package.
+Counterpart of opensplat_tpu/models/splat_model.py: render_forward
+(Model::forward, model.cpp:83-225) with the fast renderer (the port's
+kernels) or the conformance renderers (dense and tiled), and
+render_depth. The gradient of the loss with respect to the screen-space
+centres (xys.retain_grad() in the reference, model.cpp:171) comes
+through an additive `xys_shift`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ from .._device import resolve_device
 from ..ops.binning import count_isects
 from ..ops.camera import camera_matrices
 from ..ops.kernels.integration import rasterize_fast
-from ..ops.projection import project_gaussians
+from ..ops.projection import ProjectedGaussians, project_gaussians
+from ..ops.rasterize import rasterize
+from ..ops.rasterize_tiled import rasterize_tiled
 from ..ops.sh import spherical_harmonics
 from .gaussians import GaussianParams
 
@@ -31,9 +34,26 @@ class RenderOutputs(NamedTuple):
     mask: torch.Tensor  # (C,) bool visible
     xys: torch.Tensor  # (C, 2)
     depths: torch.Tensor  # (C,)
-    n_isects: torch.Tensor  # () kept intersections
-    n_cands: torch.Tensor  # () candidate (tile-bbox) pairs
-    n_grads: torch.Tensor  # () compact gradient-stream size (JAX meaning)
+    n_isects: torch.Tensor  # () kept intersections (tiled: candidates)
+    n_cands: torch.Tensor  # () candidate (tile-bbox) pairs (0 for dense)
+    n_grads: torch.Tensor  # () compact gradient-stream size (JAX meaning;
+    #                        fast only)
+
+
+def _project(params: GaussianParams, alive, viewmat, full_proj, fx, fy, cx,
+             cy, height, width) -> ProjectedGaussians:
+    return project_gaussians(
+        params.means,
+        torch.exp(params.scales),
+        1.0,
+        params.quats / torch.linalg.norm(params.quats, dim=-1, keepdim=True),
+        viewmat,
+        full_proj,
+        fx, fy, cx, cy, height, width,
+        valid_mask=alive,
+        # opacity-aware tile bboxes (binning only)
+        opacities=torch.sigmoid(params.opacities).detach(),
+    )
 
 
 def render_forward(
@@ -53,29 +73,16 @@ def render_forward(
     device="cuda",
 ) -> RenderOutputs:
     """renderer "fast" (the JAX package's "pallas") runs the port's
-    kernels; the dense and tiled conformance renderers come in a later
-    slice."""
+    kernels; "dense" and "tiled" are the conformance renderers
+    (ops/rasterize.py, ops/rasterize_tiled.py)."""
     dev = resolve_device(device)
-    if renderer in ("dense", "tiled"):
-        raise NotImplementedError(
-            f"renderer={renderer!r}: the conformance renderers are ported in "
-            "a later slice; use renderer='fast'")
-    if renderer != "fast":
+    if renderer not in ("fast", "dense", "tiled"):
         raise ValueError(f"unknown renderer {renderer!r}")
     viewmat, full_proj, cam_pos = camera_matrices(
         cam_to_world.to(dev), fx, fy, width, height)
     opac = torch.sigmoid(params.opacities)
-    proj = project_gaussians(
-        params.means,
-        torch.exp(params.scales),
-        1.0,
-        params.quats / torch.linalg.norm(params.quats, dim=-1, keepdim=True),
-        viewmat,
-        full_proj,
-        fx, fy, cx, cy, height, width,
-        valid_mask=alive,
-        opacities=opac.detach(),  # opacity-aware tile bboxes (binning only)
-    )
+    proj = _project(params, alive, viewmat, full_proj, fx, fy, cx, cy,
+                    height, width)
     xys = proj.xys if xys_shift is None else proj.xys + xys_shift
 
     # SH view directions from detached means (model.cpp:176-177)
@@ -88,11 +95,24 @@ def render_forward(
         spherical_harmonics(sh_degrees_to_use, viewdirs, coeffs) + 0.5,
         min=0.0)  # model.cpp:192
 
-    n_cands = count_isects(proj)
-    rgb, final_t, n_isects, n_grads = rasterize_fast(
-        xys, proj.conics, rgbs, opac, proj.depths, proj.radii,
-        proj.num_tiles_hit, proj.tile_min, proj.tile_max,
-        background.to(dev), height, width, return_isects=True, device=dev)
+    background = background.to(dev)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    n_cands = n_isects = n_grads = zero
+    if renderer == "dense":
+        rgb, final_t = rasterize(xys, proj.conics, rgbs, opac, proj.depths,
+                                 proj.mask, background, height, width)
+    elif renderer == "tiled":
+        n_cands = n_isects = count_isects(proj)
+        rgb, final_t = rasterize_tiled(
+            xys, proj.conics, rgbs, opac, proj.depths, proj.radii,
+            proj.num_tiles_hit, proj.tile_min, proj.tile_max, background,
+            height, width)
+    else:
+        n_cands = count_isects(proj)
+        rgb, final_t, n_isects, n_grads = rasterize_fast(
+            xys, proj.conics, rgbs, opac, proj.depths, proj.radii,
+            proj.num_tiles_hit, proj.tile_min, proj.tile_max, background,
+            height, width, return_isects=True, device=dev)
     return RenderOutputs(
         rgb=torch.clamp(rgb, max=1.0),  # model.cpp:222
         final_t=final_t,
@@ -104,3 +124,49 @@ def render_forward(
         n_cands=n_cands,
         n_grads=n_grads,
     )
+
+
+def render_depth(
+    params: GaussianParams,
+    alive: torch.Tensor,
+    cam_to_world: torch.Tensor,
+    fx: float,
+    fy: float,
+    cx: float,
+    cy: float,
+    height: int,
+    width: int,
+    mode: str = "expected",
+    device="cuda",
+):
+    """Depth-map render on the channel-generic tiled path (the nd_
+    rasterization the reference exposes through gsplat,
+    forward.cu:174-254), camera-space depth as the single channel.
+
+    mode="accumulated": sum_i alpha_i T_i d_i (raw compositing weights);
+    mode="expected":    accumulated / (1 - final_T), the expected depth
+                        per pixel; pixels nothing hit are 0.
+
+    Returns (depth (H, W), alpha (H, W)) with alpha = 1 - final_T.
+    Differentiable: depth flows to the means through the projection."""
+    if mode not in ("expected", "accumulated"):
+        raise ValueError(f"unknown depth mode {mode!r}")
+    dev = resolve_device(device)
+    viewmat, full_proj, _ = camera_matrices(cam_to_world.to(dev), fx, fy,
+                                            width, height)
+    proj = _project(params, alive, viewmat, full_proj, fx, fy, cx, cy,
+                    height, width)
+    acc, final_t = rasterize_tiled(
+        proj.xys, proj.conics,
+        # CH = 1: camera-space z (ProjectedGaussians.depths; .cam_depths
+        # is NDC z)
+        proj.depths[:, None],
+        torch.sigmoid(params.opacities), proj.depths, proj.radii,
+        proj.num_tiles_hit, proj.tile_min, proj.tile_max,
+        torch.zeros((1,), dtype=torch.float32, device=dev), height, width)
+    depth = acc[..., 0]
+    alpha = 1.0 - final_t
+    if mode == "expected":
+        depth = torch.where(alpha > 1e-6,
+                            depth / torch.clamp(alpha, min=1e-6), 0.0)
+    return depth, alpha

@@ -2,8 +2,9 @@
 sort by (tile, depth), and find per-tile ranges.
 
 Counterpart of opensplat_tpu/ops/binning.py on its kernel path
-(bin_gaussians with the expansion kernel and the exact tile-ellipse
-cull). The JAX package sizes the stream by a static budget for jit; here
+(bin_gaussians with the expansion kernel: with the exact tile-ellipse
+cull when given opacities, else the reference's full tile-bbox
+intersections). The JAX package sizes the stream by a static budget for jit; here
 it is sized exactly, with one device-to-host read of the candidate total
 per call, as the reference does (rasterize_gaussians.cpp:62-63).
 
@@ -21,7 +22,7 @@ sum reads contiguous segments and needs no second sort.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -56,10 +57,14 @@ def count_isects(proj: ProjectedGaussians) -> torch.Tensor:
 
 
 def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
-                  opacities: torch.Tensor) -> BinnedGaussians:
-    """Bin with the exact tile-ellipse cull: (Gaussian, tile) pairs whose
-    alpha provably stays below ALPHA_THRESH over the whole tile are
-    dropped; the rasterized output is unchanged."""
+                  opacities: Optional[torch.Tensor] = None
+                  ) -> BinnedGaussians:
+    """With `opacities`, bin with the exact tile-ellipse cull: (Gaussian,
+    tile) pairs whose alpha provably stays below ALPHA_THRESH over the
+    whole tile are dropped; the rasterized output is unchanged. Without,
+    every pair of each Gaussian's tile bbox is kept (forward.cu:87-94,
+    the JAX bin_gaussians(opacities=None)); isect_counts is then
+    num_tiles_hit."""
     tb_x, tb_y = num_tiles(height, width)
     n_tiles = tb_x * tb_y
     dev = proj.xys.device
@@ -67,10 +72,10 @@ def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
     cum = torch.cumsum(cnt.long(), 0)
     total = int(cum[-1]) if cnt.numel() else 0  # the one host read per call
     starts = (cum - cnt.long()).contiguous()
-    s_max = torch.log(
+    s_max = None if opacities is None else torch.log(
         torch.clamp(opacities.reshape(-1).to(torch.float32), min=1e-12)
         / ALPHA_THRESH
-    )
+    ).contiguous()
     keys, gids, kept = expand(
         cnt, starts, total,
         proj.tile_min.to(torch.int32).contiguous(),
@@ -78,7 +83,7 @@ def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
         proj.depths.detach().to(torch.float32).contiguous(),
         proj.xys.detach().to(torch.float32).contiguous(),
         proj.conics.detach().to(torch.float32).contiguous(),
-        s_max.contiguous(), tb_x, n_tiles,
+        s_max, tb_x, n_tiles,
     )
     keys_sorted, perm = torch.sort(keys, stable=True)
     gauss_ids = gids[perm]

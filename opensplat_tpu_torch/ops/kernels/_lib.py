@@ -111,7 +111,7 @@ def build() -> Path:
 _SIGNATURES = {
     "osk_error_string": ([ctypes.c_int], ctypes.c_char_p),
     "osk_expand": ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4,
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
                    ctypes.c_int),
     "osk_raster_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,

@@ -8,7 +8,9 @@ consecutive threads take consecutive rows of the block's contiguous row
 window, so a large Gaussian spreads over the CTA and the stores are
 coalesced (see the source note). The block windows come from `starts` and `cnt` on the
 device. `expand_plain` is the same function in plain PyTorch; the wrapper
-takes it only for CPU tensors.
+takes it only for CPU tensors. With s_max None both keep every row: the
+reference's unculled tile-bbox intersections (the JAX package's
+pallas_expand_bin(..., cull=False)).
 
 Outputs, for a stream of `total` candidate rows ordered Gaussian-major:
   keys (total,) int64  (tile << 32) | depth_bits, or the sentinel
@@ -76,15 +78,18 @@ def expand_plain(cnt, starts, total: int, tile_min, tile_max, depths, xys,
     tx = tmin[g, 0] + off % bw
     ty = tmin[g, 1] + off // bw
 
-    mxq = _q16(xys[:, 0])
-    myq = _q16(xys[:, 1])
-    saturated = ((mxq >= 32767.0) | (mxq <= -32768.0)
-                 | (myq >= 32767.0) | (myq <= -32768.0))[g]
-    cb = _bf16(conics)
-    ms = min_sigma_over_tile((mxq * 0.25)[g], (myq * 0.25)[g], cb[g, 0],
-                             cb[g, 1], cb[g, 2], tx.to(torch.float32),
-                             ty.to(torch.float32))
-    keep = saturated | ((_bf16(s_max)[g] - ms) >= -0.05)
+    if s_max is None:
+        keep = torch.ones_like(g, dtype=torch.bool)
+    else:
+        mxq = _q16(xys[:, 0])
+        myq = _q16(xys[:, 1])
+        saturated = ((mxq >= 32767.0) | (mxq <= -32768.0)
+                     | (myq >= 32767.0) | (myq <= -32768.0))[g]
+        cb = _bf16(conics)
+        ms = min_sigma_over_tile((mxq * 0.25)[g], (myq * 0.25)[g], cb[g, 0],
+                                 cb[g, 1], cb[g, 2], tx.to(torch.float32),
+                                 ty.to(torch.float32))
+        keep = saturated | ((_bf16(s_max)[g] - ms) >= -0.05)
 
     depth_bits = depths.contiguous().view(torch.int32).long() & 0xFFFFFFFF
     sentinel = (n_tiles << 32) | INT32_MAX
@@ -101,7 +106,8 @@ def expand(cnt, starts, total: int, tile_min, tile_max, depths, xys, conics,
            s_max, tb_x: int, n_tiles: int):
     """cnt (C,) int32 tile-bbox areas; starts (C,) int64 exclusive cumsum
     of cnt; total = sum(cnt); tile_min/max (C, 2) int32; depths (C,),
-    xys (C, 2), conics (C, 3), s_max (C,) float32."""
+    xys (C, 2), conics (C, 3), s_max (C,) float32, or None to keep
+    every row (no cull)."""
     if not cnt.is_cuda:
         return expand_plain(cnt, starts, total, tile_min, tile_max, depths,
                             xys, conics, s_max, tb_x, n_tiles)
@@ -113,15 +119,17 @@ def expand(cnt, starts, total: int, tile_min, tile_max, depths, xys, conics,
     _lib.check(depths, "depths", torch.float32, (c,))
     _lib.check(xys, "xys", torch.float32, (c, 2))
     _lib.check(conics, "conics", torch.float32, (c, 3))
-    _lib.check(s_max, "s_max", torch.float32, (c,))
+    if s_max is not None:
+        _lib.check(s_max, "s_max", torch.float32, (c,))
     keys = torch.empty((total,), dtype=torch.int64, device=cnt.device)
     gids = torch.empty((total,), dtype=torch.int32, device=cnt.device)
     kept = torch.empty((c,), dtype=torch.int32, device=cnt.device)
     p = _lib.ptr
     with _lib.timed("expand"):
         _lib.launch("osk_expand", c, p(cnt), p(starts), p(tile_min),
-                    p(tile_max), p(depths), p(xys), p(conics), p(s_max),
-                    tb_x, n_tiles, p(keys), p(gids), p(kept))
+                    p(tile_max), p(depths), p(xys), p(conics),
+                    None if s_max is None else p(s_max), tb_x, n_tiles,
+                    int(s_max is not None), p(keys), p(gids), p(kept))
     expand.launches += 1
     return keys, gids, kept
 

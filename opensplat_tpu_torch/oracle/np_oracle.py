@@ -2,19 +2,19 @@
 always-built CPU backend (gsplat-cpu/gsplat_cpu.cpp), kept deliberately
 simple and loop-based so it can be trusted as ground truth.
 
-The port's copy of the parts of opensplat_tpu/oracle/np_oracle.py that
-`oracle_render_scene` needs: projection, the forward rasterizer and SH.
-Quirks reproduced on purpose:
+The port's copy of opensplat_tpu/oracle/np_oracle.py: projection, the
+forward and backward rasterizer and SH. Quirks reproduced on purpose:
   - forward alpha clamp 0.999, backward alpha clamp 0.99
     (gsplat_cpu.cpp:220 vs :338)
   - alpha < 1/255 skip, sigma < 0 skip
   - per-pixel done flag at T <= 1e-4; the Gaussian that would cross the
     threshold is NOT composited (gsplat_cpu.cpp:223-228)
+  - backward ignores the clamp in d(alpha)/d(sigma) (gsplat_cpu.cpp:362)
   - det clamped to 1e-6; principal point pinned to the image center;
     no near-plane cull (projection, gsplat_cpu.cpp:48-131)
 
 This module is float32 NumPy on the host; the CLI's `--oracle-check`
-uses it.
+and the tests use it.
 """
 from __future__ import annotations
 
@@ -94,35 +94,18 @@ def np_project_gaussians(
     return xys, radius.astype(np.int32), conic, cov2d, p_proj[:, 2]
 
 
-def np_rasterize_forward(
-    width, height, xys, conics, colors, opacities, background, cov2d,
-    cam_depths,
-):
-    """Scalar-semantics rasterize forward.
-
-    opacities: (N,) post-sigmoid. colors: (N, 3). cov2d: (N, 2, 2) or (N, 3)
-    upper-tri. Returns (out_img(H,W,3), final_Ts(H,W)). The JAX package's
-    copy also lists the Gaussians of every pixel (px2gid) for its
-    backward; the oracle backward is not ported, so neither is that list.
-    """
-    xys = np.asarray(xys, np.float32)
-    conics = np.asarray(conics, np.float32)
-    colors = np.asarray(colors, np.float32)
-    opac = np.asarray(opacities, np.float32).reshape(-1)
-    bg = np.asarray(background, np.float32)
-    cov2d = np.asarray(cov2d, np.float32)
+def _composite(width, height, xys, conics, opac, cov2d, cam_depths, T,
+               done):
+    """The reference's front-to-back loop over Gaussians in depth order
+    (a stable sort of cam_depths). Updates T and done in place and
+    yields, per Gaussian that reaches the image, (gid, (r0, r1, c0, c1),
+    comp, vis): its pixel block, which of its pixels it is composited
+    into, and there alpha * T."""
     if cov2d.ndim == 3:
         c00, c11 = cov2d[:, 0, 0], cov2d[:, 1, 1]
     else:
         c00, c11 = cov2d[:, 0], cov2d[:, 2]
-    n = xys.shape[0]
-
     order = np.argsort(np.asarray(cam_depths, np.float32), kind="stable")
-
-    out = np.zeros((height, width, 3), np.float32)
-    T = np.ones((height, width), np.float32)
-    done = np.zeros((height, width), bool)
-
     sq_x = 3.0 * np.sqrt(c00)
     sq_y = 3.0 * np.sqrt(c11)
 
@@ -147,12 +130,129 @@ def np_rasterize_forward(
         stop = use & (next_t <= 1e-4)
         comp = use & ~stop
         vis = np.where(comp, alpha * t_blk, 0.0)
-        out[r0:r1, c0:c1] += vis[..., None] * colors[gid]
         T[r0:r1, c0:c1] = np.where(comp, next_t, t_blk)
         done[r0:r1, c0:c1] |= stop
+        yield int(gid), (r0, r1, c0, c1), comp, vis
 
+
+def _inputs(xys, conics, opacities, cov2d):
+    return (np.asarray(xys, np.float32), np.asarray(conics, np.float32),
+            np.asarray(opacities, np.float32).reshape(-1),
+            np.asarray(cov2d, np.float32))
+
+
+def np_rasterize_forward(
+    width, height, xys, conics, colors, opacities, background, cov2d,
+    cam_depths,
+):
+    """Scalar-semantics rasterize forward.
+
+    opacities: (N,) post-sigmoid. colors: (N, 3). cov2d: (N, 2, 2) or (N, 3)
+    upper-tri. Returns (out_img(H,W,3), final_Ts(H,W)). The backward's
+    per-pixel Gaussian lists come from np_pixel_gaussians (the JAX copy
+    returns them from here as a third output).
+    """
+    xys, conics, opac, cov2d = _inputs(xys, conics, opacities, cov2d)
+    colors = np.asarray(colors, np.float32)
+    bg = np.asarray(background, np.float32)
+    out = np.zeros((height, width, 3), np.float32)
+    T = np.ones((height, width), np.float32)
+    done = np.zeros((height, width), bool)
+    for gid, (r0, r1, c0, c1), _, vis in _composite(
+            width, height, xys, conics, opac, cov2d, cam_depths, T, done):
+        out[r0:r1, c0:c1] += vis[..., None] * colors[gid]
     out += T[..., None] * bg
     return out, T
+
+
+def np_pixel_gaussians(width, height, xys, conics, opacities, cov2d,
+                       cam_depths):
+    """Per pixel (row-major), the Gaussians composited into it, back to
+    front: the px2gid lists np_rasterize_backward reads (the reference's
+    reversal)."""
+    xys, conics, opac, cov2d = _inputs(xys, conics, opacities, cov2d)
+    T = np.ones((height, width), np.float32)
+    done = np.zeros((height, width), bool)
+    px2gid = [[] for _ in range(height * width)]
+    for gid, (r0, _, c0, _), comp, _ in _composite(
+            width, height, xys, conics, opac, cov2d, cam_depths, T, done):
+        for i, j in zip(*np.nonzero(comp)):
+            px2gid[(r0 + i) * width + (c0 + j)].append(gid)
+    for lst in px2gid:
+        lst.reverse()
+    return px2gid
+
+
+def np_rasterize_backward(
+    height,
+    width,
+    xys,
+    conics,
+    colors,
+    opacities,
+    background,
+    final_Ts,
+    px2gid,
+    v_out,
+    v_out_alpha,
+):
+    """Scalar-semantics rasterize backward (gsplat_cpu.cpp:267-376);
+    px2gid from np_pixel_gaussians.
+
+    Returns (v_xy(N,2), v_conic(N,3), v_colors(N,3), v_opacity(N,1)).
+    """
+    xys = np.asarray(xys, np.float32)
+    conics = np.asarray(conics, np.float32)
+    colors = np.asarray(colors, np.float32)
+    opac = np.asarray(opacities, np.float32).reshape(-1)
+    bg = np.asarray(background, np.float32)
+    v_out = np.asarray(v_out, np.float32)
+    v_out_alpha = np.asarray(v_out_alpha, np.float32)
+
+    n = xys.shape[0]
+    v_xy = np.zeros((n, 2), np.float32)
+    v_conic = np.zeros((n, 3), np.float32)
+    v_colors = np.zeros((n, 3), np.float32)
+    v_opacity = np.zeros((n, 1), np.float32)
+
+    for i in range(height):
+        for j in range(width):
+            pix = i * width + j
+            T_final = final_Ts[i, j]
+            T = T_final
+            buf = np.zeros(3, np.float32)
+            vo = v_out[i, j]
+            voa = v_out_alpha[i, j]
+            for gid in px2gid[pix]:
+                A, B, C = conics[gid]
+                gx, gy = xys[gid]
+                dx = gx - j
+                dy = gy - i
+                sigma = 0.5 * (A * dx * dx + C * dy * dy) + B * dx * dy
+                if sigma < 0:
+                    continue
+                vis = np.exp(-sigma)
+                alpha = min(0.99, opac[gid] * vis)
+                if alpha < ALPHA_THRESH:
+                    continue
+                ra = 1.0 / (1.0 - alpha)
+                T = T * ra
+                fac = alpha * T
+                v_colors[gid] += fac * vo
+                v_alpha = (
+                    np.dot(colors[gid] * T - buf * ra, vo)
+                    + T_final * ra * voa
+                    - T_final * ra * np.dot(bg, vo)
+                )
+                buf += colors[gid] * fac
+                v_sigma = -opac[gid] * vis * v_alpha
+                v_conic[gid] += 0.5 * v_sigma * np.array(
+                    [dx * dx, dx * dy, dy * dy], np.float32
+                )
+                v_xy[gid] += v_sigma * np.array(
+                    [A * dx + B * dy, B * dx + C * dy], np.float32)
+                v_opacity[gid, 0] += vis * v_alpha
+    return v_xy, v_conic, v_colors, v_opacity
 
 
 # --- SH oracle (gsplat_cpu.cpp:379-486) ------------------------------------

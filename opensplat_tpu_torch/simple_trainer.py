@@ -2,8 +2,10 @@
 
 Counterpart of opensplat_tpu/simple_trainer.py: fits N random Gaussians
 to the red/blue-quadrant test image with MSE and one torch.optim.Adam
-over the raw parameters (its optax.adam), rendering through the port's
-kernels (rasterize_fast). It runs on CUDA unless given --cpu.
+over the raw parameters (its optax.adam), rendering through --renderer:
+fast (the port's kernels, rasterize_fast; the JAX tool's pallas; the
+default, where the JAX tool's is tiled), tiled or dense. It runs on CUDA
+unless given --cpu.
 
     python -m opensplat_tpu_torch.simple_trainer --iters 60 --points 2000
 """
@@ -38,6 +40,8 @@ def main(argv=None) -> int:
     p.add_argument("--points", type=int, default=100000)
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--render", default="", help="Save rendered images to folder")
+    p.add_argument("--renderer", default="fast",
+                   choices=["dense", "tiled", "fast"])
     p.add_argument("--display-every", type=int, default=10)
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
@@ -49,6 +53,8 @@ def main(argv=None) -> int:
     from .data._image import write_png
     from .ops.kernels.integration import rasterize_fast
     from .ops.projection import project_gaussians
+    from .ops.rasterize import rasterize
+    from .ops.rasterize_tiled import rasterize_tiled
 
     dev = resolve_device("cpu" if args.cpu else "cuda")
     print("Using " + (torch.cuda.get_device_name(dev)
@@ -97,12 +103,21 @@ def main(argv=None) -> int:
             params["means"], params["scales"], 1.0, params["quats"],
             viewmat, viewmat, focal, focal, w / 2.0, h / 2.0, h, w,
         )
-        img, _ = rasterize_fast(
-            pg.xys, pg.conics, torch.sigmoid(params["rgbs"]),
-            torch.sigmoid(params["opacities"]).reshape(-1), pg.depths,
-            pg.radii, pg.num_tiles_hit, pg.tile_min, pg.tile_max,
-            background, h, w, device=dev,
-        )
+        colors = torch.sigmoid(params["rgbs"])
+        opac = torch.sigmoid(params["opacities"]).reshape(-1)
+        if args.renderer == "dense":
+            img, _ = rasterize(pg.xys, pg.conics, colors, opac, pg.depths,
+                               pg.mask, background, h, w)
+        elif args.renderer == "tiled":
+            img, _ = rasterize_tiled(
+                pg.xys, pg.conics, colors, opac, pg.depths, pg.radii,
+                pg.num_tiles_hit, pg.tile_min, pg.tile_max, background, h,
+                w)
+        else:
+            img, _ = rasterize_fast(
+                pg.xys, pg.conics, colors, opac, pg.depths, pg.radii,
+                pg.num_tiles_hit, pg.tile_min, pg.tile_max, background, h,
+                w, device=dev)
         return img
 
     t0 = time.perf_counter()

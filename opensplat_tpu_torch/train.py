@@ -4,11 +4,13 @@ Counterpart of opensplat_tpu/train.py (reference opensplat.cpp:151-196):
 forward, L1 + SSIM loss, backward, masked Adam on the six parameter
 groups, the means learning-rate schedule and the densify statistics;
 refine with capacity growth every refine_every steps past warm-up; and
-the inference render. PyTorch runs eagerly, so there is no jit and no
-static budget: the intersection streams are sized exactly each step (one
-device-to-host read of the candidate total), and the demand counters
-n_cands, n_isects and n_grads are reported with the JAX package's
-meaning.
+the inference render. Every entry point takes `renderer`: "fast" (the
+port's kernels, the default), or the conformance renderers "dense" and
+"tiled" (the JAX Trainer's default is "dense"). PyTorch runs eagerly, so
+there is no jit and no static budget: the intersection streams are
+sized exactly each step (one device-to-host read of the candidate
+total), and the demand counters n_cands, n_isects and n_grads are
+reported with the JAX package's meaning.
 """
 from __future__ import annotations
 

@@ -2,20 +2,28 @@
 kernels' plain versions), against the JAX CLI where they share a
 contract: the end-to-end run on test_cli_e2e.py's synthetic project
 (loss falls; scene, cameras.json, validation renders, the step-20
-snapshot; the oracle check; PLY resume), the parser's flags and
-defaults, the flags the port refuses, the camera sampler's
-fast-forward, the Trainer resumed from a checkpoint across two
-densifying refines (the counterpart of test_resume.py's exactness
-test: losses and parameters rtol 1e-5, alive masks equal), --auto-resume,
-and simple_trainer."""
+snapshot; the oracle check; PLY resume), runs with the conformance
+renderers (--renderer dense|tiled), the parser's flags and defaults,
+the flags the port refuses, the camera sampler's fast-forward, the
+Trainer resumed from a checkpoint across two densifying refines (the
+counterpart of test_resume.py's exactness test: losses and parameters
+rtol 1e-5, alive masks equal), --auto-resume, simple_trainer with each
+renderer, the synthetic project's textured style (held to the JAX
+tool's draws and to the JAX tiled renderer) and parity_report (held to
+the JAX tool on the same scene)."""
 import argparse
+import importlib.util
 import json
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
 import torch
+
+import jax
+import jax.numpy as jnp
 
 from opensplat_tpu import cli as jcli
 from opensplat_tpu.train import InfiniteRandomSampler as JSampler
@@ -24,6 +32,10 @@ from opensplat_tpu_torch.config import TrainConfig
 from opensplat_tpu_torch.data.dataset import Camera
 from opensplat_tpu_torch.io import load_checkpoint, load_ply, save_checkpoint
 from opensplat_tpu_torch.models.gaussians import PARAM_NAMES, init_model
+from opensplat_tpu_torch.data.point_io import read_point_set
+from opensplat_tpu_torch.data._image import imread_rgb
+from opensplat_tpu_torch.models.splat_model import DEFAULT_BACKGROUND
+from opensplat_tpu_torch.tools import make_synthetic_project, parity_report
 from opensplat_tpu_torch.train import (InfiniteRandomSampler, Trainer,
                                        render_image)
 from test_cli_e2e import synthetic_project  # noqa: F401 (module fixture)
@@ -109,8 +121,6 @@ def test_parser_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("flags,message", [
-    (["--renderer", "dense"], "not ported yet"),
-    (["--renderer", "tiled"], "not ported yet"),
     (["--distributed"], "--distributed: multi-device"),
     (["--data-parallel", "2"], "--data-parallel: multi-device"),
     (["--model-parallel", "-1"], "--model-parallel: multi-device"),
@@ -320,3 +330,147 @@ def test_cli_report_and_control_channel(synthetic_project, tmp_path,  # noqa: F8
     finally:
         httpd.shutdown()
         httpd.server_close()
+
+
+@pytest.mark.parametrize("renderer", ["dense", "tiled"])
+def test_cli_conformance_renderers(renderer, synthetic_project, tmp_path,  # noqa: F811
+                                   capsys):
+    """--renderer dense|tiled trains through the conformance renderers: a
+    few steps at 32x24 px (-d 2), finite loss, the scene written; the
+    first step's loss is the fast renderer's (the three renderers draw
+    the same image)."""
+    common = [synthetic_project, "--cpu", "-n", "4", "-d", "2",
+              "--sh-degree", "1", "--num-downscales", "0",
+              "--capacity", "256"]
+    losses = {}
+    for r in (renderer, "fast"):
+        out = str(tmp_path / r / "scene.ply")
+        mfile = str(tmp_path / f"{r}.jsonl")
+        assert cli.main(common + ["-o", out, "--renderer", r,
+                                  "--metrics-file", mfile]) == 0
+        losses[r] = _losses(mfile)
+        assert len(losses[r]) == 4 and np.all(np.isfinite(losses[r]))
+        state, step = load_ply(out, device="cpu")
+        assert step == 4 and int(state.alive.sum()) > 0
+    np.testing.assert_allclose(losses[renderer][0], losses["fast"][0],
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("renderer", ["tiled", "dense"])
+def test_simple_trainer_renderers(renderer, capsys):
+    """simple_trainer --renderer converges through each conformance
+    renderer, from the fast renderer's first loss (same start)."""
+    argv = ["--cpu", "--iters", "20", "--points", "300", "--width", "32",
+            "--height", "32"]
+    first = {}
+    for r in (renderer, "fast"):
+        assert simple_trainer.main(argv + ["--renderer", r]) == 0
+        text = capsys.readouterr().out
+        first[r] = float(re.search(r"Iteration 1/20 Loss: ([\d.]+)",
+                                   text).group(1))
+        final = float(re.search(r"Final loss: ([\d.]+)", text).group(1))
+        assert np.isfinite(final) and final < 0.8 * first[r], (r, final)
+    np.testing.assert_allclose(first[renderer], first["fast"], rtol=1e-4)
+
+
+def _jax_tool(name):
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", os.path.join(repo, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_textured_project_matches_jax(tmp_path, monkeypatch):
+    """The textured style draws the JAX tool's scene from the same seed
+    (its GaussianParams, caught at its render call; sparse.ply and the
+    cameras), and its ground truth is the JAX tiled renderer's image of
+    that scene over the port's training background (PNG rounding: one
+    8-bit step)."""
+    from opensplat_tpu.models import splat_model as jsm
+
+    res, n = 32, 240
+    jrender = jsm.render_forward
+    caught = []
+
+    def catch(params, alive, c2w, fx, fy, cx, cy, h, w, *a, **kw):
+        caught.append((params, c2w, fx))
+        return jsm.RenderOutputs(*([jnp.zeros((h, w, 3))]
+                                   + [jnp.zeros(())] * 8))
+
+    monkeypatch.setattr(jsm, "render_forward", catch)
+    monkeypatch.setattr(sys, "argv", [
+        "make_synthetic_project.py", str(tmp_path / "jax"), "--cams", "2",
+        "--points", str(n), "--res", str(res), "--style", "textured"])
+    _jax_tool("make_synthetic_project").main()
+    make_synthetic_project.make_project(
+        str(tmp_path / "port"), cams=2, points=n, res=res, style="textured",
+        device="cpu", verbose=False)
+
+    jt = json.load(open(tmp_path / "jax" / "transforms.json"))
+    tt = json.load(open(tmp_path / "port" / "transforms.json"))
+    assert jt == tt
+    jp = read_point_set(str(tmp_path / "jax" / "sparse.ply"))
+    tp = read_point_set(str(tmp_path / "port" / "sparse.ply"))
+    np.testing.assert_array_equal(tp.points, jp.points)
+    np.testing.assert_array_equal(tp.colors, jp.colors)
+
+    means, _, log_scales, quats, opac = make_synthetic_project.textured_scene(
+        np.random.default_rng(7), n)
+    params, c2w, f = caught[0]
+    for got, k in ((means, "means"), (log_scales, "scales"),
+                   (quats, "quats"), (opac, "opacities")):
+        np.testing.assert_allclose(got, np.asarray(getattr(params, k)),
+                                   rtol=1e-6, atol=1e-7, err_msg=k)
+
+    def render(params, c2w):
+        return jrender(params, jnp.ones((n,), bool), c2w, f, f, res / 2.0,
+                       res / 2.0, res, res, 0,
+                       jnp.asarray(DEFAULT_BACKGROUND, jnp.float32),
+                       renderer="tiled", isect_budget=4096).rgb
+
+    want = np.clip(np.asarray(jax.jit(render)(params, jnp.asarray(c2w))),
+                   0, 1) * 255
+    got = imread_rgb(str(tmp_path / "port" / "images" / "r_000.png"))
+    assert np.abs(got.astype(np.float32) - want).max() <= 1.0
+    assert got.std() > 10  # the scene, not only the background
+
+
+def test_parity_report_matches_jax(synthetic_project, tmp_path,  # noqa: F811
+                                   monkeypatch):
+    """parity_report trains a few steps and writes its .json and .md as
+    the JAX tool writes them; evaluating the saved scene (--eval-scene),
+    both tools report the same validation PSNR and both oracle checks
+    pass."""
+    monkeypatch.setenv("OPENSPLAT_TPU_CACHE", "0")  # no XLA disk cache
+    out = str(tmp_path / "rep")
+    assert parity_report.main([synthetic_project, "-n", "4", "--val-every",
+                               "2", "--renderer", "tiled", "--cpu",
+                               "--downscale-factor", "2", "--out",
+                               out]) == 0
+    rep = json.load(open(out + ".json"))
+    assert (rep["backend"], rep["renderer"], rep["num_iters"]) == (
+        "cpu", "tiled", 4)
+    assert [r["step"] for r in rep["curve"]] == [2, 4]
+    assert rep["oracle_check"]["ok"] and os.path.exists(rep["scene"])
+    md = open(out + ".md").read().splitlines()
+    assert md[0] == f"# Parity report — {os.path.basename(synthetic_project)}"
+    assert md[4] == "| step | val PSNR (dB) | steps/s | loss | #gaussians |"
+
+    evals = {}
+    for name, main in (("jax", _jax_tool("parity_report").main),
+                       ("port", parity_report.main)):
+        stem = str(tmp_path / f"eval_{name}")
+        assert main([synthetic_project, "--eval-scene", rep["scene"],
+                     "--renderer", "tiled", "--cpu",
+                     "--downscale-factor", "2", "--out", stem]) == 0
+        evals[name] = json.load(open(stem + ".json"))
+    j, t = evals["jax"], evals["port"]
+    assert set(j) == set(t) and set(j["final"]) == set(t["final"])
+    assert t["num_iters"] == j["num_iters"] == 4
+    assert t["n_cameras"] == j["n_cameras"]
+    assert t["final"]["n_gaussians"] == j["final"]["n_gaussians"]
+    np.testing.assert_allclose(t["final"]["val_psnr"], j["final"]["val_psnr"],
+                               atol=0.01)
+    assert t["oracle_check"]["ok"] and j["oracle_check"]["ok"]

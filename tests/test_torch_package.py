@@ -18,11 +18,13 @@ from opensplat_tpu_torch import cli, io, simple_trainer
 from opensplat_tpu_torch.config import TrainConfig
 from opensplat_tpu_torch.models.gaussians import init_model
 from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
+                                                    render_depth,
                                                     render_forward)
 from opensplat_tpu_torch.ops.kernels import (_lib, expand, raster,
                                              raster_variants, segsum)
 from opensplat_tpu_torch.ops.kernels.integration import rasterize_fast
-from opensplat_tpu_torch.tools import kbench_raster, make_synthetic_project
+from opensplat_tpu_torch.tools import (kbench_raster, make_synthetic_project,
+                                       parity_report)
 from opensplat_tpu_torch.train import Trainer, render_image, train_step
 
 # one intra-op thread per process: the suite runs one pytest-xdist
@@ -64,7 +66,8 @@ def test_no_jax_imports():
               "data.openmvg", "data.point_io", "native.loader",
               "io.scene_io", "oracle.np_oracle", "oracle.scene_check",
               "utils.metrics", "utils.report",
-              "tools.make_synthetic_project"):
+              "tools.make_synthetic_project", "tools.parity_report",
+              "gsplat_compat", "ops.rasterize", "ops.rasterize_tiled"):
         assert f"opensplat_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -129,6 +132,16 @@ def _call_render_forward():
                    32, 32, 0, torch.tensor(DEFAULT_BACKGROUND))
 
 
+def _call_render_depth():
+    st = _tiny_state()[2]
+    render_depth(st.params, st.alive, torch.eye(4), 50.0, 50.0, 16.0, 16.0,
+                 32, 32)
+
+
+def _call_parity_report():
+    parity_report.main([REPO, "-n", "1"])
+
+
 def _call_rasterize_fast():
     z = torch.zeros((4,))
     rasterize_fast(torch.zeros((4, 2)), torch.zeros((4, 3)),
@@ -171,7 +184,8 @@ def _call_load_checkpoint():
 
 @pytest.mark.parametrize("call", [_call_init_model, _call_trainer,
                                   _call_train_step, _call_render_forward,
-                                  _call_rasterize_fast, _call_render_image,
+                                  _call_render_depth, _call_rasterize_fast,
+                                  _call_render_image, _call_parity_report,
                                   _call_kbench, _call_cli,
                                   _call_simple_trainer,
                                   _call_make_synthetic_project,
@@ -179,16 +193,6 @@ def _call_load_checkpoint():
 def test_entry_points_default_to_cuda(no_cuda, call):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
-
-
-def test_renderers_of_later_slices_raise():
-    st = _tiny_state()[2]
-    for r in ("dense", "tiled"):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            render_forward(st.params, st.alive, torch.eye(4), 50.0, 50.0,
-                           16.0, 16.0, 32, 32, 0,
-                           torch.tensor(DEFAULT_BACKGROUND), renderer=r,
-                           device="cpu")
 
 
 def test_cpu_tensors_take_the_plain_versions():
@@ -211,6 +215,10 @@ def test_cpu_tensors_take_the_plain_versions():
     e_args = (cnt, starts, 2 * c, tmin, tmax, depths, xys, conics, s_max, 3, 6)
     for a, b in zip(expand.expand(*e_args), expand.expand_plain(*e_args)):
         assert torch.equal(a, b)
+    full = e_args[:8] + (None,) + e_args[9:]  # no cull: every row kept
+    for a, b in zip(expand.expand(*full), expand.expand_plain(*full)):
+        assert torch.equal(a, b)
+    assert torch.equal(expand.expand(*full)[2], cnt)
     keys, gids, _ = expand.expand(*e_args)
     order = torch.sort(keys, stable=True).indices
     gauss_ids = gids[order].contiguous()
