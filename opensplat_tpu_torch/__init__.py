@@ -13,7 +13,14 @@ easy to find:
   ops/kernels/ ......... the hand-written Hopper kernels (csrc/*.cu) with
                          their plain PyTorch versions and launch counters
   gsplat_compat.py ..... the reference's 11 gsplat entry points
-  cli.py, simple_trainer.py, tools/, data/, io/, oracle/, utils/
+  parallel/ ............ one process per rank (torch.distributed): camera
+                         DP (dp_trainer.py), Gaussian-shard MP and the
+                         hybrid (gaussian_shard.py), multi-scene
+                         (multi_scene.py), the rank grid and its
+                         collectives (mesh.py), the bootstrap
+                         (distributed.py) and a launcher (launch.py)
+  cli.py, multi_scene_cli.py, simple_trainer.py, tools/, data/, io/,
+  oracle/, utils/
 
 Entry points default to device="cuda" and raise when CUDA is missing;
 pass device="cpu" to run the plain PyTorch versions of the kernels. The

@@ -11,11 +11,19 @@ It trains on CUDA unless given --cpu (then the kernels' plain PyTorch
 versions run); without a card it fails, never falling back to the CPU.
 --renderer auto, pallas and fast select the port's kernels; dense and
 tiled the conformance renderers (ops/rasterize.py,
-ops/rasterize_tiled.py). The parallel flags (--distributed,
---data-parallel, --model-parallel) exit with a message: the port trains
-on one device.
+ops/rasterize_tiled.py). The parallel flags run as in the JAX CLI, one
+process per rank (parallel/): --distributed joins the ranks named by
+OPENSPLAT_COORDINATOR / OPENSPLAT_NUM_PROCESSES / OPENSPLAT_PROCESS_ID
+(without them it trains single-process), --data-parallel D trains
+camera-DP over D ranks, --model-parallel M shards the Gaussians over M
+ranks, and both together train the hybrid; D and M are clamped to the
+ranks there are, and a rank left outside the grid idles. Only rank 0
+writes scene files, checkpoints, the metrics file and the report.
 
     python -m opensplat_tpu_torch.cli <project> -o out/scene.ply
+    python -m opensplat_tpu_torch.parallel.launch -n 2 -- \
+        python -m opensplat_tpu_torch.cli <project> --distributed \
+        --data-parallel -1
 """
 from __future__ import annotations
 
@@ -79,13 +87,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--capacity", type=int, default=None,
                    help="Fixed Gaussian capacity (default: auto)")
     p.add_argument("--distributed", action="store_true",
-                   help="Multi-host training (not ported yet)")
+                   help="Multi-process training: join the ranks named by "
+                   "OPENSPLAT_COORDINATOR/OPENSPLAT_NUM_PROCESSES/"
+                   "OPENSPLAT_PROCESS_ID (backend: OPENSPLAT_BACKEND, NCCL "
+                   "on cards by default; parallel/distributed.py)")
     p.add_argument("--data-parallel", type=int, default=0, metavar="D",
-                   help="Camera data-parallelism over D devices (not "
-                   "ported yet)")
+                   help="Camera data-parallelism over D ranks, one camera "
+                   "per rank per step (-1 = all ranks)")
     p.add_argument("--model-parallel", type=int, default=0, metavar="M",
-                   help="Gaussian model-parallelism over M devices (not "
-                   "ported yet)")
+                   help="Shard the Gaussians over M ranks (-1 = all ranks); "
+                   "with --data-parallel, hybrid DP x MP")
     p.add_argument("--checkpoint-every", type=int, default=-1,
                    help="Write a full-state checkpoint every N steps")
     p.add_argument("--gt-cache-mb", type=int, default=1024,
@@ -116,17 +127,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--version", action="version",
                    version="opensplat_tpu_torch 0.1.0")
     return p
-
-
-def _refuse_unported(args) -> None:
-    """Exit with a message for what the port does not have yet."""
-    for flag, value in (("--distributed", args.distributed),
-                        ("--data-parallel", args.data_parallel),
-                        ("--model-parallel", args.model_parallel)):
-        if value:
-            raise SystemExit(
-                f"{flag}: multi-device training is not ported yet; the port "
-                "trains on one device (drop the flag)")
 
 
 def pick_renderer(choice: str) -> str:
@@ -182,20 +182,82 @@ def main(argv=None) -> int:
     if not project_root:
         build_parser().print_help()
         return 0
-    _refuse_unported(args)
 
+    import torch.distributed as dist
+
+    try:
+        return _train(args, project_root)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _make_trainer(args, state, cams, cfg, device):
+    """The trainer the parallel flags ask for (the JAX CLI's branches,
+    ranks where it has devices), or None on a rank outside the grid."""
+    import torch.distributed as dist
+
+    from .parallel.dp_trainer import DPTrainer
+    from .parallel.gaussian_shard import GSTrainer
+    from .parallel.mesh import make_mesh
+    from .train import Trainer
+
+    renderer = pick_renderer(cfg.renderer)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    d, m = args.data_parallel, args.model_parallel
+    if d and m:
+        # hybrid: camera-DP x Gaussian-MP on a (data, model) grid
+        n_data = d if d > 0 else 2
+        n_model = m if m > 0 else 2
+        if n_data * n_model > world:
+            raise SystemExit(
+                f"--data-parallel {n_data} x --model-parallel {n_model} "
+                f"needs {n_data * n_model} ranks, have {world}")
+        print(f"Hybrid training: {n_data}-camera DP x {n_model}-shard "
+              f"Gaussian MP ({n_data * n_model} ranks)")
+        cls = GSTrainer
+    elif d:
+        n_data, n_model = min(d if d > 0 else world, world), 1
+        print(f"Camera data-parallel training over {n_data} ranks")
+        cls = DPTrainer
+    elif m:
+        n_data, n_model = 1, min(m if m > 0 else world, world)
+        print(f"Gaussian model-parallel training over {n_model} ranks")
+        cls = GSTrainer
+    else:
+        return Trainer(state, cams, cfg, renderer=renderer, device=device)
+    mesh = make_mesh(n_data, n_model, ranks=range(n_data * n_model))
+    if not mesh.member:
+        print(f"rank {dist.get_rank()}: outside the {n_data} x {n_model} "
+              "grid of ranks; idle")
+        return None
+    return cls(state, cams, cfg, renderer=renderer, mesh=mesh, device=device)
+
+
+def _train(args, project_root) -> int:
     import numpy as np
     import torch
+    import torch.distributed as dist
 
-    from ._device import resolve_device
     from .config import TrainConfig
     from .data.dataset import input_data_from_x
     from .io import load_checkpoint, load_ply, save_checkpoint, save_scene
     from .models.gaussians import init_model
     from .ops.ssim import main_loss, psnr
-    from .train import Trainer, get_downscale_factor
+    from .parallel.distributed import initialize_from_env, rank_device
+    from .train import get_downscale_factor
 
-    device = resolve_device("cpu" if args.cpu else "cuda")
+    base_device = "cpu" if args.cpu else "cuda"
+    if args.distributed:
+        initialize_from_env(device=base_device)
+        if dist.is_initialized():
+            print(f"Distributed: process {dist.get_rank()}/"
+                  f"{dist.get_world_size()} ({dist.get_backend()})")
+        else:
+            print("Distributed: no cluster detected, single-process run")
+    device = rank_device(base_device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    is_main = world == 1 or dist.get_rank() == 0
     print("Using " + (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "CPU"))
     # loss print cadence: every 10 steps on a card, every step on the CPU
@@ -284,8 +346,9 @@ def main(argv=None) -> int:
             device=device,
         )
 
-    trainer = Trainer(state, cams, cfg, renderer=pick_renderer(cfg.renderer),
-                      device=device)
+    trainer = _make_trainer(args, state, cams, cfg, device)
+    if trainer is None:
+        return 0
     if resume_path:
         # replay the camera sampler to the checkpoint's position so the
         # resumed run continues the uninterrupted run's camera order; a
@@ -296,40 +359,51 @@ def main(argv=None) -> int:
 
     from .utils.metrics import MetricsLogger, profile_trace
 
-    metrics = MetricsLogger(args.metrics_file)
+    # every rank trains; only rank 0 writes the files
+    metrics = MetricsLogger(args.metrics_file if is_main else "")
     report = None
     control_file = None
     httpd = None
     if args.report_dir:
         from .utils.report import TrainingReport
 
-        report = TrainingReport(args.report_dir)
         control_file = os.path.join(args.report_dir, "control.txt")
-        if os.path.exists(control_file):  # a stale command of an old run
-            os.remove(control_file)
-        if args.serve:
-            httpd = _start_server(args.report_dir, args.serve)
+        if is_main:
+            report = TrainingReport(args.report_dir)
+            if os.path.exists(control_file):  # a stale command of an old run
+                os.remove(control_file)
+            if args.serve:
+                httpd = _start_server(args.report_dir, args.serve)
 
     def save_intermediate(step):
+        st = trainer.full_state()  # gathers the shards: every rank calls
         stem, ext = os.path.splitext(cfg.output)
-        save_scene(
-            trainer.state.params, trainer.state.alive,
-            f"{stem}_{step}{ext}", step,
-            keep_crs=cfg.keep_crs, scale=input_data.scale,
-            translation=input_data.translation,
-        )
-        print(f"Wrote {stem}_{step}{ext}")
+        if is_main:
+            save_scene(
+                st.params, st.alive, f"{stem}_{step}{ext}", step,
+                keep_crs=cfg.keep_crs, scale=input_data.scale,
+                translation=input_data.translation,
+            )
+            print(f"Wrote {stem}_{step}{ext}")
 
     def control_cmd():
         # pause/stop channel (visualizer.cpp:184-195 semantics, headless:
-        # a control file written by the --serve buttons or by hand)
+        # a control file written by the --serve buttons or by hand); rank
+        # 0 reads it and every rank acts on what rank 0 read
         if control_file is None:
             return None
-        try:
-            with open(control_file) as f:
-                return f.read().strip()
-        except OSError:
-            return None
+        cmd = None
+        if is_main:
+            try:
+                with open(control_file) as f:
+                    cmd = f.read().strip()
+            except OSError:
+                cmd = None
+        if world > 1:
+            box = [cmd]
+            dist.broadcast_object_list(box, src=0)
+            cmd = box[0]
+        return cmd
 
     profiling = None
     try:
@@ -360,7 +434,7 @@ def main(argv=None) -> int:
                     f" [{metrics.steps_per_sec():.2f} steps/s,"
                     f" {outcome.n_alive} gaussians]"
                 )
-                if report is not None:
+                if args.report_dir:
                     _report_step(report, trainer, cfg, step, display_step,
                                  outcome, val_cam, bool(args.serve))
                 cmd = control_cmd()
@@ -371,23 +445,28 @@ def main(argv=None) -> int:
                     cmd = control_cmd()
                     print("Resumed")
                 if cmd == "stop":
-                    os.remove(control_file)
+                    if is_main:
+                        os.remove(control_file)
                     print(f"Stop requested at step {step} — saving and "
                           "exiting")
                     break
             if cfg.save_every > 0 and step % cfg.save_every == 0:
                 save_intermediate(step)
             if cfg.checkpoint_every > 0 and step % cfg.checkpoint_every == 0:
-                ckpt_dir = cfg.ckpt_dir or os.path.dirname(cfg.output) or "."
-                os.makedirs(ckpt_dir, exist_ok=True)
-                save_checkpoint(
-                    trainer.state, step,
-                    os.path.join(ckpt_dir, f"ckpt_{step}.npz"),
-                    sampler_draws=trainer.sampler.draws, seed=cfg.seed,
-                )
+                st = trainer.full_state()
+                if is_main:
+                    ckpt_dir = (cfg.ckpt_dir or os.path.dirname(cfg.output)
+                                or ".")
+                    os.makedirs(ckpt_dir, exist_ok=True)
+                    save_checkpoint(
+                        st, step, os.path.join(ckpt_dir, f"ckpt_{step}.npz"),
+                        sampler_draws=trainer.sampler.draws, seed=cfg.seed,
+                    )
             if cfg.val_render and step % 10 == 0:
                 rgb = trainer.render(val_cam, step).cpu().numpy()
-                _write_png(os.path.join(cfg.val_render, f"{step}.png"), rgb)
+                if is_main:
+                    _write_png(os.path.join(cfg.val_render, f"{step}.png"),
+                               rgb)
     finally:
         if profiling is not None:
             profiling.__exit__(None, None, None)
@@ -397,15 +476,17 @@ def main(argv=None) -> int:
             httpd.server_close()
     if report is not None:
         print(f"Wrote {report.write()}")
-    cameras_json = os.path.join(os.path.dirname(cfg.output) or ".",
-                                "cameras.json")
-    input_data.save_cameras(cameras_json, cfg.keep_crs)
-    save_scene(
-        trainer.state.params, trainer.state.alive, cfg.output, cfg.num_iters,
-        keep_crs=cfg.keep_crs, scale=input_data.scale,
-        translation=input_data.translation,
-    )
-    print(f"Wrote {cfg.output}")
+    final = trainer.full_state()
+    if is_main:
+        cameras_json = os.path.join(os.path.dirname(cfg.output) or ".",
+                                    "cameras.json")
+        input_data.save_cameras(cameras_json, cfg.keep_crs)
+        save_scene(
+            final.params, final.alive, cfg.output, cfg.num_iters,
+            keep_crs=cfg.keep_crs, scale=input_data.scale,
+            translation=input_data.translation,
+        )
+        print(f"Wrote {cfg.output}")
 
     if args.oracle_check and cfg.output.endswith(".ply"):
         from .models.splat_model import DEFAULT_BACKGROUND
@@ -414,12 +495,13 @@ def main(argv=None) -> int:
         from .train import sh_degrees_for_step
 
         check_cam = val_cam if val_cam is not None else cams[0]
+        factor = get_downscale_factor(cfg.num_iters, cfg)
+        ours = trainer.render(check_cam, cfg.num_iters).cpu().numpy()
+    if args.oracle_check and cfg.output.endswith(".ply") and is_main:
         ckstate, _ = load_ply(
             cfg.output, keep_crs=cfg.keep_crs, scale=input_data.scale,
             translation=input_data.translation, device="cpu",
         )
-        factor = get_downscale_factor(cfg.num_iters, cfg)
-        ours = trainer.render(check_cam, cfg.num_iters).cpu().numpy()
         t_oracle = time.perf_counter()
         oracle_img = oracle_render_scene(
             ckstate.params, ckstate.alive, check_cam.cam_to_world,
@@ -453,26 +535,29 @@ def _report_step(report, trainer, cfg, step, display_step, outcome, val_cam,
                  live):
     """Curves every display step; a render-vs-GT snapshot and the point
     cloud about ten times a run; the page rewritten every 10 displays
-    (every display when served)."""
+    (every display when served). Every rank calls it (the render and
+    the state may be gathered over ranks); `report` is None off rank 0."""
     import numpy as np
 
     from .ops.sh import sh_to_rgb
     from .train import get_downscale_factor
 
-    report.log(step, outcome.loss, outcome.psnr, outcome.n_alive)
+    if report is not None:
+        report.log(step, outcome.loss, outcome.psnr, outcome.n_alive)
     snap_every = max(1, cfg.num_iters // 10)
     if step % snap_every < display_step or step == cfg.num_iters:
         if val_cam is not None:
             rgb = trainer.render(val_cam, step).cpu().numpy()
             gt = val_cam.get_image(get_downscale_factor(step, cfg))
-            report.snapshot(step, rgb, np.asarray(gt))
-        alive = trainer.state.alive.cpu().numpy()
-        report.point_cloud(
-            step,
-            trainer.state.params.means.cpu().numpy()[alive],
-            sh_to_rgb(trainer.state.params.features_dc).cpu().numpy()[alive],
-        )
-    if live or step % (display_step * 10) == 0:
+            if report is not None:
+                report.snapshot(step, rgb, np.asarray(gt))
+        st = trainer.full_state()
+        if report is not None:
+            alive = st.alive.cpu().numpy()
+            report.point_cloud(
+                step, st.params.means.cpu().numpy()[alive],
+                sh_to_rgb(st.params.features_dc).cpu().numpy()[alive])
+    if report is not None and (live or step % (display_step * 10) == 0):
         report.write(live=True)
 
 

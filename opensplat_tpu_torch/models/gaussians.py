@@ -156,6 +156,35 @@ def grow_capacity(state: TrainState, new_capacity: int) -> TrainState:
     )
 
 
+def state_map(fn, *states: TrainState,
+              capacity_only: bool = False) -> TrainState:
+    """A TrainState whose every tensor is fn of the given states' tensors
+    at that place: params, alive, Adam mu and nu, and stats; with
+    capacity_only, stats.initialized (0-d) is the first state's, kept.
+    The Adam count is the first state's."""
+    first = states[0]
+
+    def each(get):
+        return fn(*(get(s) for s in states))
+
+    stats = DensifyStats(
+        xys_grad_norm=each(lambda s: s.stats.xys_grad_norm),
+        vis_counts=each(lambda s: s.stats.vis_counts),
+        max_2d_size=each(lambda s: s.stats.max_2d_size),
+        initialized=(first.stats.initialized if capacity_only
+                     else each(lambda s: s.stats.initialized)),
+    )
+    return TrainState(
+        params=GaussianParams(**{k: each(lambda s: getattr(s.params, k))
+                                 for k in PARAM_NAMES}),
+        alive=each(lambda s: s.alive),
+        opt=AdamState(mu={k: each(lambda s: s.opt.mu[k]) for k in PARAM_NAMES},
+                      nu={k: each(lambda s: s.opt.nu[k]) for k in PARAM_NAMES},
+                      count=first.opt.count),
+        stats=stats,
+    )
+
+
 def state_from_numpy(d: dict, device="cuda") -> TrainState:
     """TrainState from numpy leaves, e.g. those of a JAX TrainState:
     d = {"params": {name: array for PARAM_NAMES}, "alive": (C,) bool,

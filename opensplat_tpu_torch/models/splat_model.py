@@ -41,7 +41,8 @@ class RenderOutputs(NamedTuple):
 
 
 def _project(params: GaussianParams, alive, viewmat, full_proj, fx, fy, cx,
-             cy, height, width) -> ProjectedGaussians:
+             cy, height, width, fov_width=None, fov_height=None,
+             row_offset=None) -> ProjectedGaussians:
     return project_gaussians(
         params.means,
         torch.exp(params.scales),
@@ -53,6 +54,9 @@ def _project(params: GaussianParams, alive, viewmat, full_proj, fx, fy, cx,
         valid_mask=alive,
         # opacity-aware tile bboxes (binning only)
         opacities=torch.sigmoid(params.opacities).detach(),
+        fov_width=fov_width,
+        fov_height=fov_height,
+        row_offset=row_offset,
     )
 
 
@@ -71,18 +75,28 @@ def render_forward(
     xys_shift: Optional[torch.Tensor] = None,
     renderer: str = "fast",
     device="cuda",
+    fov_width: Optional[int] = None,
+    fov_height: Optional[int] = None,
+    row_offset: Optional[int] = None,
 ) -> RenderOutputs:
     """renderer "fast" (the JAX package's "pallas") runs the port's
     kernels; "dense" and "tiled" are the conformance renderers
-    (ops/rasterize.py, ops/rasterize_tiled.py)."""
+    (ops/rasterize.py, ops/rasterize_tiled.py). A band of a larger
+    image: fov_width/fov_height give the whole frame's size for the EWA
+    clamp (the JAX package's bands shift cy as well); with row_offset
+    the call renders rows [row_offset, row_offset + height) of the
+    fov_width x fov_height frame (cx, cy the frame's), which equal the
+    frame's own render of those rows (ops/projection.py)."""
     dev = resolve_device(device)
     if renderer not in ("fast", "dense", "tiled"):
         raise ValueError(f"unknown renderer {renderer!r}")
+    frame = (width, height) if row_offset is None else (
+        fov_width or width, fov_height)
     viewmat, full_proj, cam_pos = camera_matrices(
-        cam_to_world.to(dev), fx, fy, width, height)
+        cam_to_world.to(dev), fx, fy, *frame)
     opac = torch.sigmoid(params.opacities)
     proj = _project(params, alive, viewmat, full_proj, fx, fy, cx, cy,
-                    height, width)
+                    height, width, fov_width, fov_height, row_offset)
     xys = proj.xys if xys_shift is None else proj.xys + xys_shift
 
     # SH view directions from detached means (model.cpp:176-177)

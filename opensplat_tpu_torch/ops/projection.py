@@ -1,8 +1,9 @@
 """EWA 3D->2D Gaussian projection on tensors.
 
 Counterpart of opensplat_tpu/ops/projection.py in its "gpu" mode, the
-one training uses (the "cpu" conformance mode and band rendering come
-with the renderers that need them): near-plane cull,
+one training uses (the "cpu" conformance mode comes with the renderers
+that need it), band rendering included (`fov_width`/`fov_height`,
+`row_offset`): near-plane cull,
 quat -> R -> cov3d, EWA cov2d with FOV clamping and the +0.3 px blur,
 conic and 3-sigma radius, NDC -> pixel centre, and the per-Gaussian tile
 bounding box (opacity-aware when `opacities` is given). Elementwise over
@@ -51,11 +52,22 @@ def project_gaussians(
     valid_mask: Optional[torch.Tensor] = None,
     opacities: Optional[torch.Tensor] = None,
     alpha_thresh: float = 1.0 / 255.0,
+    fov_width: Optional[int] = None,
+    fov_height: Optional[int] = None,
+    row_offset: Optional[int] = None,
 ) -> ProjectedGaussians:
     """Project N 3D Gaussians to screen space; same contract as the JAX
     project_gaussians with mode="gpu" (means (N,3), scales exponentiated
     (N,3), quats wxyz (N,4), viewmat world->camera, projmat full
-    projection)."""
+    projection). fov_width/fov_height: the size of the whole image when
+    this call renders a band of it, so that the EWA clamp is the whole
+    frame's (as in the JAX package, whose bands shift cy and build
+    projmat for the band). row_offset: this call projects rows
+    [row_offset, row_offset + img_height) of the fov_width x fov_height
+    frame that projmat, cx and cy describe (parallel/gaussian_shard.py):
+    the centres are the frame's minus row_offset, an exact subtraction
+    for a multiple of 16, so a band renders its rows of the frame to the
+    bit; the tile grid is the band's."""
     means = means.to(torch.float32)
 
     R_vm = viewmat[:3, :3]
@@ -63,8 +75,9 @@ def project_gaussians(
     p_view = means @ R_vm.T + t_vm
     z = p_view[:, 2]
 
-    tan_fovx = 0.5 * img_width / fx
-    tan_fovy = 0.5 * img_height / fy
+    tan_fovx = 0.5 * (fov_width if fov_width is not None else img_width) / fx
+    tan_fovy = 0.5 * (fov_height if fov_height is not None
+                      else img_height) / fy
     lim_x = 1.3 * tan_fovx
     lim_y = 1.3 * tan_fovy
     z_safe = torch.where(z.abs() < 1e-8, torch.full_like(z, 1e-8), z)
@@ -111,8 +124,12 @@ def project_gaussians(
     w_hom = p_hom[:, 3]
     rw = 1.0 / (w_hom + 1e-6)
     p_proj = p_hom[:, :3] * rw[:, None]
-    u = 0.5 * img_width * p_proj[:, 0] + cx - 0.5
-    v = 0.5 * img_height * p_proj[:, 1] + cy - 0.5
+    if row_offset is None:
+        u = 0.5 * img_width * p_proj[:, 0] + cx - 0.5
+        v = 0.5 * img_height * p_proj[:, 1] + cy - 0.5
+    else:
+        u = 0.5 * (fov_width or img_width) * p_proj[:, 0] + cx - 0.5
+        v = 0.5 * fov_height * p_proj[:, 1] + cy - 0.5 - row_offset
     xys = torch.stack([u, v], dim=-1)
 
     # tile bbox: integer geometry, no gradient

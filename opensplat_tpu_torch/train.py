@@ -41,6 +41,28 @@ def sh_degrees_for_step(step: int, cfg: TrainConfig) -> int:
     return min(step // cfg.sh_degree_interval, cfg.sh_degree)
 
 
+def learning_rates(cfg: TrainConfig, means_lr: float) -> dict:
+    """The six parameter groups' learning rates for one step."""
+    return {
+        "means": means_lr,
+        "scales": cfg.lr_scales,
+        "quats": cfg.lr_quats,
+        "features_dc": cfg.lr_features_dc,
+        "features_rest": cfg.lr_features_rest,
+        "opacities": cfg.lr_opacities,
+    }
+
+
+def leaf_grads(loss: torch.Tensor, leaves: dict, shift: torch.Tensor):
+    """Gradients of `loss` for the six parameter groups (`leaves`, by
+    name; zeros for a group the loss does not reach) and for the xys
+    shift."""
+    grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_NAMES]
+                                + [shift], allow_unused=True)
+    return {k: (g if g is not None else torch.zeros_like(leaves[k]))
+            for k, g in zip(PARAM_NAMES, grads[:-1])}, grads[-1]
+
+
 def train_step_impl(
     state: TrainState,
     cam_to_world: torch.Tensor,
@@ -73,21 +95,11 @@ def train_step_impl(
         height, width, sh_deg, background, xys_shift=xys_shift,
         renderer=renderer, device=dev)
     loss = main_loss(out.rgb, gt_image, cfg.ssim_weight)
-    grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_NAMES]
-                                + [xys_shift], allow_unused=True)
-    g_params = {k: (g if g is not None else torch.zeros_like(leaves[k]))
-                for k, g in zip(PARAM_NAMES, grads[:-1])}
-    lrs = {
-        "means": means_lr,
-        "scales": cfg.lr_scales,
-        "quats": cfg.lr_quats,
-        "features_dc": cfg.lr_features_dc,
-        "features_rest": cfg.lr_features_rest,
-        "opacities": cfg.lr_opacities,
-    }
-    adam_update(state.params.as_dict(), g_params, state.opt, lrs, state.alive)
+    g_params, g_xys = leaf_grads(loss, leaves, xys_shift)
+    adam_update(state.params.as_dict(), g_params, state.opt,
+                learning_rates(cfg, means_lr), state.alive)
     if accumulate:  # step < stop_split_at, host-known
-        state.stats = accumulate_stats(state.stats, grads[-1], out.radii,
+        state.stats = accumulate_stats(state.stats, g_xys, out.radii,
                                        height, width)
     with torch.no_grad():
         metrics = {
@@ -190,7 +202,7 @@ class Trainer:
         self.cfg = cfg
         self.renderer = renderer
         self.sampler = InfiniteRandomSampler(len(cameras), seed=cfg.seed)
-        self.d_total = 1  # cameras per step (the CLI's resume arithmetic)
+        self.d_total = 1  # cameras per step (the DP trainers raise this)
         self.last_hw = (0, 0)  # the last step's render size (refine's maxwh)
         self.refine_metrics: Optional[dict] = None
         # largest [n_cands, n_isects, n_grads] seen per resolution; the
@@ -199,6 +211,7 @@ class Trainer:
         self._gt_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
         self._gt_cache_used = 0
         self._gt_cache_budget = max(0, int(cfg.gt_cache_mb)) * (1 << 20)
+        self._size_queues: dict = {}  # _sample_batch's draws by image size
 
     def _gt_on_device(self, cam_idx: int, factor: int) -> torch.Tensor:
         """GT image on the device, cached per (camera, factor) under
@@ -223,6 +236,33 @@ class Trainer:
         self._gt_cache_used += nbytes
         return arr
 
+    def _capacity_rounding(self) -> int:
+        """Capacity-growth granularity; the Gaussian-sharded trainer
+        rounds to a multiple of its shard count too."""
+        return self.cfg.capacity_round
+
+    def _sample_batch(self, factor: int):
+        """Draw d_total same-sized cameras: ((h, w), [(camera, gt)]). The
+        sampler keeps the reference's reshuffle-per-epoch order
+        (utils.hpp:14-38); when the dataset mixes image sizes, draws of
+        another size wait in their own size's queue, so every camera
+        still appears once per epoch. Used by the DP trainers."""
+        while True:
+            cam_idx = self.sampler.next()
+            gt = self._gt_on_device(cam_idx, factor)
+            key = (int(gt.shape[0]), int(gt.shape[1]))
+            q = self._size_queues.setdefault(key, [])
+            q.append((self.cameras[cam_idx], gt))
+            if len(q) >= self.d_total:
+                self._size_queues[key] = q[self.d_total:]
+                return key, q[:self.d_total]
+
+    def full_state(self) -> TrainState:
+        """The whole model (what scene files and checkpoints hold). The
+        Gaussian-sharded trainer gathers it from every rank, so every
+        rank of a run must call this together."""
+        return self.state
+
     def run_step(self, step: int) -> StepOutcome:
         cfg = self.cfg
         cam_idx = self.sampler.next()
@@ -242,15 +282,20 @@ class Trainer:
             sh_degrees_for_step(step, cfg), cfg,
             accumulate=step < cfg.stop_split_at, renderer=self.renderer,
         )
-        # demand is read at the JAX Trainer's cadence (warm-up steps,
-        # every 10th step, refine boundaries)
-        if step <= 3 or step % 10 == 0 or step % cfg.refine_every == 0:
-            d = [int(metrics[k]) for k in ("n_cands", "n_isects", "n_grads")]
-            prev = self.demand.get((h, w), [0, 0, 0])
-            self.demand[(h, w)] = [max(a, b) for a, b in zip(prev, d)]
+        self._note_demand(step, (h, w), [metrics[k] for k in
+                                         ("n_cands", "n_isects", "n_grads")])
         if step % cfg.refine_every == 0 and step > cfg.warmup_length:
             self._refine(step)
         return StepOutcome(metrics)
+
+    def _note_demand(self, step: int, hw: tuple, demand) -> None:
+        """Keep the largest [n_cands, n_isects, n_grads] per resolution.
+        `demand` is read (a sync) at the JAX Trainer's cadence: warm-up
+        steps, every 10th step, refine boundaries."""
+        if step <= 3 or step % 10 == 0 or step % self.cfg.refine_every == 0:
+            d = [int(v) for v in demand]
+            prev = self.demand.get(hw, [0, 0, 0])
+            self.demand[hw] = [max(a, b) for a, b in zip(prev, d)]
 
     def _refine(self, step: int):
         """The refine of model.cpp:339-494 at a refine boundary: grow
@@ -273,7 +318,7 @@ class Trainer:
                 self.state, maxwh, cfg, use_screen_size)
             if needed > n_free:
                 self.state = grow_capacity(self.state, round_capacity(
-                    int((n_alive + needed) * 1.25), cfg.capacity_round))
+                    int((n_alive + needed) * 1.25), self._capacity_rounding()))
 
         if do_densification or do_reset:
             self.state, metrics = refine_step(

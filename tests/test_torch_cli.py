@@ -4,7 +4,7 @@ contract: the end-to-end run on test_cli_e2e.py's synthetic project
 (loss falls; scene, cameras.json, validation renders, the step-20
 snapshot; the oracle check; PLY resume), runs with the conformance
 renderers (--renderer dense|tiled), the parser's flags and defaults,
-the flags the port refuses, the camera sampler's fast-forward, the
+the parallel flags on gloo ranks, the camera sampler's fast-forward, the
 Trainer resumed from a checkpoint across two densifying refines (the
 counterpart of test_resume.py's exactness test: losses and parameters
 rtol 1e-5, alive masks equal), --auto-resume, simple_trainer with each
@@ -35,6 +35,7 @@ from opensplat_tpu_torch.models.gaussians import PARAM_NAMES, init_model
 from opensplat_tpu_torch.data.point_io import read_point_set
 from opensplat_tpu_torch.data._image import imread_rgb
 from opensplat_tpu_torch.models.splat_model import DEFAULT_BACKGROUND
+from opensplat_tpu_torch.parallel.launch import run_ranks
 from opensplat_tpu_torch.tools import make_synthetic_project, parity_report
 from opensplat_tpu_torch.train import (InfiniteRandomSampler, Trainer,
                                        render_image)
@@ -120,14 +121,43 @@ def test_parser_flags_and_defaults_match_jax():
             a.val_image) == ("splat.ply", 30000, 3, 500, "random")
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["--distributed"], "--distributed: multi-device"),
-    (["--data-parallel", "2"], "--data-parallel: multi-device"),
-    (["--model-parallel", "-1"], "--model-parallel: multi-device"),
+@pytest.mark.parametrize("flags,ranks,message", [
+    (["--distributed"], 1,
+     "Distributed: no cluster detected, single-process run"),
+    (["--distributed", "--data-parallel", "2"], 2,
+     "Camera data-parallel training over 2 ranks"),
+    (["--distributed", "--model-parallel", "-1"], 2,
+     "Gaussian model-parallel training over 2 ranks"),
 ])
-def test_unported_flags_exit_with_a_message(flags, message, tmp_path):
-    with pytest.raises(SystemExit, match=message):
-        cli.main([str(tmp_path), "--cpu"] + flags)
+def test_parallel_flags_train(flags, ranks, message, synthetic_project,  # noqa: F811
+                              tmp_path, capsys, monkeypatch):
+    """The parallel flags on the CPU under gloo: --distributed without a
+    cluster trains in one process, as the JAX CLI does; --data-parallel 2
+    and --model-parallel -1 (all ranks; 48-row images, so the second
+    band is padded) train on 2 ranks started by parallel/launch.py, and
+    only rank 0 writes the scene and the metrics file."""
+    out = tmp_path / "out" / "scene.ply"
+    mfile = tmp_path / "m.jsonl"
+    args = [synthetic_project, "-o", str(out), "-n", "4", "--cpu",
+            "--sh-degree", "1", "--num-downscales", "0",
+            "--metrics-file", str(mfile)] + flags
+    if ranks == 1:
+        monkeypatch.delenv("OPENSPLAT_COORDINATOR", raising=False)
+        assert cli.main(args) == 0
+        outs = [capsys.readouterr().out]
+    else:
+        outs = run_ranks([sys.executable, "-m", "opensplat_tpu_torch.cli"]
+                         + args, ranks,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
+                         timeout=150)
+        for r, o in enumerate(outs):
+            assert f"Distributed: process {r}/2 (gloo)" in o, o
+        assert "Wrote" not in outs[1]
+    assert message in outs[0], outs[0]
+    assert f"Wrote {out}" in outs[0]
+    losses = _losses(str(mfile))
+    assert len(losses) == 4 and np.isfinite(losses).all()
+    assert int(load_ply(str(out), device="cpu")[0].alive.sum()) > 0
 
 
 def test_sampler_fast_forward_replays_order():

@@ -14,7 +14,7 @@ import pytest
 import torch
 
 import opensplat_tpu_torch
-from opensplat_tpu_torch import cli, io, simple_trainer
+from opensplat_tpu_torch import cli, io, multi_scene_cli, simple_trainer
 from opensplat_tpu_torch.config import TrainConfig
 from opensplat_tpu_torch.models.gaussians import init_model
 from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
@@ -23,6 +23,9 @@ from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
 from opensplat_tpu_torch.ops.kernels import (_lib, expand, raster,
                                              raster_variants, segsum)
 from opensplat_tpu_torch.ops.kernels.integration import rasterize_fast
+from opensplat_tpu_torch.parallel.distributed import initialize_from_env
+from opensplat_tpu_torch.parallel.dp_trainer import DPTrainer
+from opensplat_tpu_torch.parallel.gaussian_shard import GSTrainer
 from opensplat_tpu_torch.tools import (kbench_raster, make_synthetic_project,
                                        parity_report)
 from opensplat_tpu_torch.train import Trainer, render_image, train_step
@@ -60,14 +63,18 @@ def test_no_jax_imports():
     """A fresh interpreter (this one already holds JAX) imports every
     port module and chip_smoke, then finds no jax / opensplat_tpu."""
     mods = _modules()
-    assert len(mods) >= 35
+    assert len(mods) >= 43
     for m in ("cli", "simple_trainer", "data.dataset", "data._image",
               "data.colmap", "data.nerfstudio", "data.opensfm",
               "data.openmvg", "data.point_io", "native.loader",
               "io.scene_io", "oracle.np_oracle", "oracle.scene_check",
               "utils.metrics", "utils.report",
               "tools.make_synthetic_project", "tools.parity_report",
-              "gsplat_compat", "ops.rasterize", "ops.rasterize_tiled"):
+              "gsplat_compat", "ops.rasterize", "ops.rasterize_tiled",
+              "multi_scene_cli", "parallel", "parallel.mesh",
+              "parallel.distributed", "parallel.launch",
+              "parallel.sharded_train", "parallel.dp_trainer",
+              "parallel.gaussian_shard", "parallel.multi_scene"):
         assert f"opensplat_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -166,6 +173,22 @@ def _call_cli():
     cli.main([REPO])
 
 
+def _call_multi_scene_cli():
+    multi_scene_cli.main([REPO])
+
+
+def _call_dp_trainer():
+    DPTrainer(_tiny_state()[2], [], TrainConfig())
+
+
+def _call_gs_trainer():
+    GSTrainer(_tiny_state()[2], [], TrainConfig())
+
+
+def _call_initialize_from_env():
+    initialize_from_env("file:///nonexistent/store", 1, 0)
+
+
 def _call_simple_trainer():
     simple_trainer.main(["--iters", "1", "--points", "10"])
 
@@ -187,6 +210,9 @@ def _call_load_checkpoint():
                                   _call_render_depth, _call_rasterize_fast,
                                   _call_render_image, _call_parity_report,
                                   _call_kbench, _call_cli,
+                                  _call_multi_scene_cli, _call_dp_trainer,
+                                  _call_gs_trainer,
+                                  _call_initialize_from_env,
                                   _call_simple_trainer,
                                   _call_make_synthetic_project,
                                   _call_load_ply, _call_load_checkpoint])
