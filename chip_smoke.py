@@ -30,7 +30,8 @@ Phases (any failure raises and the script exits non-zero):
   4. at the main path's shapes (the trained state, camera 0) hold each
      kernel against its plain version again; run expand twice,
      raster_fwd twice, and raster_bwd then segment_sum twice, and
-     require bitwise-equal outputs; time the plain versions and segment
+     require bitwise-equal outputs; time the plain versions (one call
+     after a warm-up: the plain rasterizers take seconds) and segment
      sum's library yardsticks (torch.segment_reduce and index_add_,
      never called by the port; by CUDA events, the table's library_ms
      is the faster; device time printed beside);
@@ -88,9 +89,9 @@ Phases (any failure raises and the script exits non-zero):
      binning, one expand launch) torch.equal to its plain version, all
      sum(num_tiles_hit) keys kept; (d) render_depth in both modes:
      finite, alpha = 1 - the tiled final T; (e) Trainer(renderer=
-     "tiled") 3 steps from phase 3's initial state, step 1's loss within
+     "tiled") 2 steps from phase 3's initial state, step 1's loss within
      rel 1e-3 of the fast Trainer's, steps/s; (f) cli.main --renderer
-     tiled for 4 steps on phase 7's project: exit 0, finite losses, a
+     tiled for 2 steps on phase 7's project: exit 0, finite losses, a
      scene.
   9. parallel/ on rank processes that share the card (gloo; this
      script's rank_* functions started by opensplat_tpu_torch/parallel/
@@ -109,11 +110,28 @@ Phases (any failure raises and the script exits non-zero):
      training kernels; a rank that fails, times out or misses a check
      fails the run. Steps/s per path is printed with the card; ranks
      that share a card measure correctness, not scaling.
+ 10. the port bench and the step profiler: (a) `python -m
+     opensplat_tpu_torch.bench`, the default sweep (16384 Gaussians at
+     256 px up to 1048576 at 1080 px): five lines, the 131072 / 512 px
+     headline last with a sweep of four, every value finite and
+     positive, every line naming this card; (b) the 1048576-Gaussian
+     1080 px model (SH degree 3, the first full-width size whose edge
+     tiles are padded): three train_steps, finite losses, each training
+     kernel launched once a step, peak memory and demand, the tile
+     balance and each kernel's bound from this run's data, and
+     profile_step's anatomy at every sweep size; (c) the four training
+     kernels against their plain versions at 1080 px, whole, at phase
+     4's tolerances; (d) each parallel mode of the bench once at 131072
+     Gaussians, 512 px, BENCH_ITERS=10 (DP 2, MP 2, the 2 x 2 hybrid,
+     two scenes over 2 ranks), on gloo ranks sharing the card, each
+     printing rank 0's one line.
 The line before the last is the {"kernels": [...]} table (with each
 training kernel's phase-7 launches as `cli_launches`, expand's and
-segsum's over phase 8's tiled Trainer steps as `tiled_launches`, and
-rank 0's launches on each phase-9 path as `parallel_launches`); the
-last line is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
+segsum's over phase 8's tiled Trainer steps as `tiled_launches`, rank
+0's launches on each phase-9 path as `parallel_launches`, and phase
+10's three 1080 px steps' launches, device ms per launch and bound as
+`sweep_launches`, `device_ms_1080` and `bound_ms_1080`); the last line
+is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
 """
 from __future__ import annotations
@@ -178,18 +196,16 @@ class Camera:
 
 
 def make_scene(n_points, size, seed, device):
-    """bench.py's scene: points uniform in [-1.5, 1.5]^3, random colours
-    and ground truth, camera at z = +6 with fx = fy = 0.9 * size, plus two
-    cameras at small offsets."""
+    """bench.py's scene (bench.bench_scene): points uniform in
+    [-1.5, 1.5]^3, random colours and ground truth, camera at z = +6 with
+    fx = fy = 0.9 * size, plus two cameras at small offsets."""
+    from opensplat_tpu_torch.bench import bench_scene
     from opensplat_tpu_torch.models.gaussians import init_model
 
-    rng = np.random.default_rng(seed)
-    pts = rng.uniform(-1.5, 1.5, (n_points, 3)).astype(np.float32)
-    rgb = rng.integers(0, 255, (n_points, 3)).astype(np.uint8)
-    state = init_model(pts, rgb, sh_degree=3, capacity=n_points, seed=seed,
-                       device=device)
-    gt = rng.uniform(0, 1, (size, size, 3)).astype(np.float32)
-    cams = [Camera(e, size, gt) for e in
+    sc = bench_scene(n_points, size, seed)
+    state = init_model(sc.pts, sc.rgb, sh_degree=3, capacity=n_points,
+                       seed=seed, device=device)
+    cams = [Camera(e, size, sc.gt) for e in
             ((0.0, 0.0, 6.0), (0.1, 0.0, 6.0), (0.0, 0.1, 6.0))]
     return state, cams
 
@@ -1167,23 +1183,19 @@ def conformance_phase(state, cam, project, device, fresh_scene, card):
     zero()
     losses = [tr.run_step(1).loss]
 
-    def steps_2_3():
-        for k in (2, 3):
-            losses.append(tr.run_step(k).loss)
-
-    _, ms = wall_ms(steps_2_3, dev)
+    _, ms = wall_ms(lambda: losses.append(tr.run_step(2).loss), dev)
     counts_e = read()
     rel = abs(losses[0] - loss_fast) / abs(loss_fast)
     print(f"conformance Trainer(renderer='tiled'): {c} g, {size} px, "
           f"losses {[round(v, 6) for v in losses]}; step 1 against the "
-          f"fast Trainer's {loss_fast:.6f}: rel {rel:.3g}; steps 2-3 at "
-          f"{2e3 / ms:.3f} steps/s ({card}); launches "
+          f"fast Trainer's {loss_fast:.6f}: rel {rel:.3g}; step 2 at "
+          f"{1e3 / ms:.3f} steps/s ({card}); launches "
           + json.dumps(counts_e),
           flush=True)
     if not (np.all(np.isfinite(losses)) and rel <= 1e-3):
         raise AssertionError(f"tiled Trainer: losses {losses}, step 1 rel "
                              f"{rel} against fast")
-    if cuda and (counts_e["expand"] < 3 or counts_e["segsum"] < 3
+    if cuda and (counts_e["expand"] < 2 or counts_e["segsum"] < 2
                  or counts_e["raster_fwd"] or counts_e["raster_bwd"]):
         raise AssertionError(f"tiled Trainer launches: {counts_e}")
     del tr, st, cams
@@ -1195,21 +1207,21 @@ def conformance_phase(state, cam, project, device, fresh_scene, card):
     zero()
     t = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        rc = cli.main([project, "-o", out, "-n", "4", "--renderer", "tiled",
+        rc = cli.main([project, "-o", out, "-n", "2", "--renderer", "tiled",
                        "--num-downscales", "1", "--sh-degree", "3",
                        "--metrics-file", mfile] + ([] if cuda else ["--cpu"]))
     wall = time.perf_counter() - t
     counts_f = read()
     losses = [json.loads(r)["loss"] for r in open(mfile)
               if json.loads(r)["type"] == "step"]
-    if rc != 0 or not os.path.exists(out) or len(losses) != 4 or not all(
+    if rc != 0 or not os.path.exists(out) or len(losses) != 2 or not all(
             np.isfinite(losses)):
         raise AssertionError(f"cli --renderer tiled: rc {rc}, losses "
                              f"{losses}, scene {os.path.exists(out)}:\n"
                              + buf.getvalue()[-2000:])
-    if cuda and (counts_f["expand"] < 4 or counts_f["segsum"] < 4):
+    if cuda and (counts_f["expand"] < 2 or counts_f["segsum"] < 2):
         raise AssertionError(f"cli --renderer tiled launches: {counts_f}")
-    print(f"conformance cli --renderer tiled: 4 steps at {size // 2} px in "
+    print(f"conformance cli --renderer tiled: 2 steps at {size // 2} px in "
           f"{wall:.2f} s (whole run; {card}), losses {[round(v, 6) for v in losses]},"
           f" scene {os.path.getsize(out)} B; launches "
           + json.dumps(counts_f), flush=True)
@@ -1779,6 +1791,169 @@ def parallel_phase(n_points, size, steps, device, work, project, smi):
             for k in training_wrappers()}
 
 
+BENCH_MODES = (("dp", {"BENCH_DP": "2"}), ("mp", {"BENCH_MP": "2"}),
+               ("hybrid", {"BENCH_DP": "2", "BENCH_MP": "2"}),
+               ("scenes", {"BENCH_SCENES": "2", "BENCH_SCENES_SHARDED": "1"}))
+
+
+def bench_lines(env, label, device_info):
+    """`python -m opensplat_tpu_torch.bench` with the BENCH_* variables
+    of `env` alone: its JSON lines, each printed (the sweep's last
+    without its copy of the others), beside its stderr's `bench:` lines.
+    Raises on a non-zero exit, a value that is not finite and positive,
+    or a line whose device is not `device_info` (the card's name and
+    power limit, or the CPU)."""
+    e = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    e.update(env)
+    out = subprocess.run([sys.executable, "-m", "opensplat_tpu_torch.bench"],
+                         cwd=REPO, env=e, capture_output=True, text=True,
+                         timeout=900)
+    for ln in out.stderr.splitlines():
+        if ln.startswith("bench:"):
+            print(f"  {ln}")
+    if out.returncode != 0:
+        raise AssertionError(f"bench {label}: exit {out.returncode}\n"
+                             + out.stderr[-6000:])
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    for rec in lines:
+        v = rec["value"]
+        if not (np.isfinite(v) and v > 0):
+            raise AssertionError(f"bench {label}: {rec['metric']} = {v}")
+        dev = rec["device"]
+        if {k: dev.get(k) for k in device_info} != device_info:
+            raise AssertionError(f"bench {label}: device {dev}, this run's "
+                                 f"is {device_info}")
+        short = {k: v for k, v in rec.items() if k != "sweep"}
+        print(f"  bench {label}: {json.dumps(short)}"
+              + (f" + sweep of {len(rec['sweep'])}" if "sweep" in rec
+                 else ""), flush=True)
+    return lines
+
+
+def kernel_device_ms(rows):
+    """{training kernel: (device ms per recorded launch, launches
+    recorded)} from device_rows' rows; (None, 0) for one not recorded."""
+    out = {}
+    for k in training_wrappers():
+        hit = [(t, c) for name, t, c in rows if KERNEL_FUNCS[k] in name]
+        n = sum(c for _, c in hit)
+        out[k] = (sum(t * c for t, c in hit) / n if n else None, n)
+    return out
+
+
+def big_model(n_points, size, device, peak, trace_dir, profile_sizes):
+    """Phase 10 (b) and (c) at n_points Gaussians, size px: three
+    train_steps of the bench model (bench.single_step), every training
+    kernel launched once a step, finite losses, the peak memory and
+    demand; at the trained state the tile balance (on a card), each
+    kernel's bound, and each kernel against its plain version at phase
+    4's tolerances on the whole frame (the plain rasterizers step every
+    tile at once, record index by record index, so their time follows
+    the longest tile and not the tile count: a subset of tiles that
+    keeps the longest would save no time); then profile_step's anatomy
+    at each of `profile_sizes`, which hold this size. Returns (launches,
+    {kernel: (device ms per launch, launches recorded)} at this size,
+    bounds, max abs errors)."""
+    import torch
+
+    from opensplat_tpu_torch import bench
+    from opensplat_tpu_torch.tools.profile_step import anatomy
+
+    cuda = torch.device(device).type == "cuda"
+    state, step = bench.single_step(n_points, size, "fast", device)
+    wrappers = training_wrappers()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    for fn in wrappers.values():
+        fn.launches = 0
+    losses = []
+    for _ in range(3):
+        state, m = step(state)
+        losses.append(float(m["loss"]))
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"sweep {size} px: losses {losses}")
+    if cuda and set(launches.values()) != {3}:
+        raise AssertionError(f"sweep {size} px: launches {launches} in 3 "
+                             "steps")
+    mem = (f"; peak memory {torch.cuda.max_memory_allocated() / 2**20:.0f} "
+           "MiB" if cuda else "")
+    print(f"sweep {n_points} g, {size} px: 3 train_steps, losses "
+          f"{json.dumps(losses)}; launches {json.dumps(launches)}{mem}; "
+          f"demand " + json.dumps({k: int(m[k]) for k in
+                                   ("n_cands", "n_isects", "n_grads")}),
+          flush=True)
+    inp = stage_inputs(state, Camera((0.0, 0.0, 6.0), size, None), 3, 4)
+    if cuda:
+        tile_balance(inp)
+    bnd = bounds(inp, *peak)
+    print(f"sweep bounds at {size} px (ms, by): " + json.dumps(bnd))
+    t0 = time.perf_counter()
+    errs, _ = check_kernels(inp, f"{n_points} g, {size} px, whole frame")
+    print(f"sweep kernels against their plain versions at {size} px: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    del inp, state, step
+    if cuda:
+        torch.cuda.empty_cache()
+    dev_ms, summary = None, {}
+    for n, h in profile_sizes:
+        prof = anatomy(n, h, "fast", torch.device(device), trace_dir)
+        if (n, h) == (n_points, size):
+            dev_ms = kernel_device_ms(prof["rows"])
+        summary[f"{n}g@{h}px"] = {k: round(prof[k], 4) for k in (
+            "busy_ms", "busy_share", "ssim_ms", "ssim_share")}
+        summary[f"{n}g@{h}px"]["wall_ms"] = round(
+            statistics.mean(prof["wall_ms"]), 3)
+    print("anatomy summary (busy: device ms a step; share: of the "
+          "unprofiled wall; ssim: SSIM forward + backward alone): "
+          + json.dumps(summary), flush=True)
+    return launches, dev_ms, bnd, errs
+
+
+def sweep_phase(smi, peak, work):
+    """Phase 10: the port bench and the step profiler on the card. (a)
+    `python -m opensplat_tpu_torch.bench`, the default sweep: five lines,
+    the headline last with a sweep of four, every value finite and
+    positive, every line naming this card. (b, c) big_model at the
+    largest sweep size, with the anatomy at every sweep size. (d) each
+    parallel mode of the bench once at the
+    headline size, BENCH_ITERS=10, on gloo ranks that share the card,
+    rank 0's one line each. Returns big_model's launches, device ms and
+    bounds."""
+    import torch
+
+    from opensplat_tpu_torch.bench import HEADLINE, SWEEP
+
+    t_phase = time.perf_counter()
+    name, limit = (x.strip() for x in smi.split(","))
+    card = {"platform": "gpu", "name": name, "power_limit": limit}
+    torch.cuda.empty_cache()  # room for the bench's processes
+    lines = bench_lines({}, "sweep", card)
+    if len(lines) != 5 or len(lines[-1].get("sweep", ())) != 4:
+        raise AssertionError(f"bench sweep: {len(lines)} lines, the last "
+                             "with a sweep of "
+                             f"{len(lines[-1].get('sweep', ()))}")
+    want = [f"train_steps_per_sec[fast,{n}g,{h}px]" for n, h in
+            SWEEP + (HEADLINE,)]
+    if [r["metric"] for r in lines] != want or \
+            lines[-1]["sweep"] != lines[:4]:
+        raise AssertionError("bench sweep: lines "
+                             + json.dumps([r["metric"] for r in lines]))
+    launches, dev_ms, bnd, errs = big_model(
+        *SWEEP[-1], "cuda", peak, os.path.join(work, "trace"), SWEEP)
+    torch.cuda.empty_cache()
+    for label, env in BENCH_MODES:
+        env = dict(env, BENCH_POINTS=str(HEADLINE[0]),
+                   BENCH_RES=str(HEADLINE[1]), BENCH_ITERS="10")
+        got = bench_lines(env, label, card)
+        if len(got) != 1 or "ranks, gloo, sharing one card" not in \
+                got[0]["unit"]:
+            raise AssertionError(f"bench {label}: {got}")
+    print(f"sweep phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, dev_ms, bnd, errs
+
+
 def main():
     try:
         import torch
@@ -1795,6 +1970,12 @@ def main():
         return 1
     sys.path.insert(0, REPO)
     t_all = time.perf_counter()
+    phase_s, mark = {}, [t_all]
+
+    def done(phase):  # seconds each phase took, printed at the end
+        now = time.perf_counter()
+        phase_s[phase] = round(now - mark[0], 1)
+        mark[0] = now
 
     # phase 1: the card, and the kernels' build
     smi = subprocess.run(
@@ -1831,6 +2012,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    done(1)
     # phase 2: kernels against plain versions on the 16384 / 256 px scene,
     # again at 250 px (tiles padded past the image's edge), and the
     # segment sum on segments long enough for its whole-warp path
@@ -1842,6 +2024,7 @@ def main():
     check_segsum_segments()
     check_expand_stress()
 
+    done(2)
     # phase 3: training through the normal entry point at full width
     from opensplat_tpu_torch.config import TrainConfig
     from opensplat_tpu_torch.train import Trainer
@@ -1899,6 +2082,7 @@ def main():
     print("kernel device ms per launch (torch.profiler, 3 steps: ms, "
           "launches recorded): " + json.dumps(dev_ms), flush=True)
 
+    done(3)
     # phase 4: main-path shapes — agreement, plain and library times, bounds
     inp = stage_inputs(trainer.state, cams[0], 3, 2)
     if inp["img"].shape != (512, 512, 3) or not bool(
@@ -1914,12 +2098,14 @@ def main():
         "raster_bwd": lambda: raster.rasterize_backward_plain(*inp["bwd"]),
         "segsum": lambda: segsum.segment_sum_plain(*sargs),
     }
-    plain_ms = {k: time_ms(fn, 5) for k, fn in plain.items()}
+    # one timed call after a warm-up: the plain rasterizers take seconds
+    plain_ms = {k: time_ms(fn, 1) for k, fn in plain.items()}
     yard = segsum_yardsticks(inp, g_rec)
     library_ms = min(yard["segment_reduce"], yard["index_add_"])
     tile_balance(inp)
     bnd = bounds(inp, *peak)
 
+    done(4)
     # phase 5: refine past warm-up on the card, then the kernels against
     # their plain versions at the grown capacity, dead slots and all
     ref_trainer, ref_cams = refine_phase(131072, 512, 60, "cuda")
@@ -1929,6 +2115,7 @@ def main():
                   f"grown capacity {cap}, {n_alive} alive")
     del ref_trainer, ref_cams, st
 
+    done(5)
     # phase 6: the forward-kernel ablation bench — agreement on small
     # and uneven streams first, then at the bench's own default stream
     from opensplat_tpu_torch.tools import kbench_raster
@@ -1963,6 +2150,7 @@ def main():
     kernel_ms["kbench_fwd"] = bench["full"][0]
     errs["kbench_fwd"] = v_errs["full"]
 
+    done(6)
     # phase 7: the CLI end to end on a synthetic project at the headline
     # model's width, resume included; phase 8: the conformance renderers
     # on phase 3's model and camera, and on phase 7's project
@@ -1971,12 +2159,20 @@ def main():
     del inp, g_rec, sargs, plain
     with tempfile.TemporaryDirectory() as work:
         cli_launches = cli_phase(131072, 512, 300, "cuda", work)
+        done(7)
         tiled_launches = conformance_phase(
             trainer.state, cams[0], os.path.join(work, "project"), "cuda",
             lambda n, size: make_scene(n, size, 0, "cuda"), smi)
+        done(8)
         # phase 9: parallel/ on ranks that share the card
         parallel_launches = parallel_phase(
             131072, 512, 20, "cuda", work, os.path.join(work, "project"), smi)
+        done(9)
+        # phase 10: the bench's sweep and modes, the 1080 px model
+        del trainer, state
+        os.makedirs(os.path.join(work, "trace"))
+        sweep_launches, dev_1080, bnd_1080, _ = sweep_phase(smi, peak, work)
+        done(10)
 
     table = []
     for k, (src, rep) in KERNELS.items():
@@ -1990,13 +2186,17 @@ def main():
             "cli_launches": cli_launches.get(k),
             "tiled_launches": tiled_launches.get(k),
             "parallel_launches": parallel_launches.get(k),
+            "sweep_launches": sweep_launches.get(k),
+            "device_ms_1080": dev_1080.get(k, (None,))[0],
+            "bound_ms_1080": bnd_1080.get(k, (None,))[0],
         })
     for row in table:
         print(f"  {row['name']:<10} {row['ms']:.4f} ms  device "
               f"{row['device_ms']} ms  bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})  plain {row['plain_ms']:.3f} ms  "
               f"launches {row['launches']}")
-    print(f"total {time.perf_counter() - t_all:.1f} s", flush=True)
+    print(f"total {time.perf_counter() - t_all:.1f} s; seconds by phase "
+          + json.dumps(phase_s), flush=True)
     if "jax" in sys.modules or "opensplat_tpu" in sys.modules:
         raise AssertionError("jax or opensplat_tpu was imported")
     print(json.dumps({"kernels": table}))

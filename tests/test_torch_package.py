@@ -14,7 +14,8 @@ import pytest
 import torch
 
 import opensplat_tpu_torch
-from opensplat_tpu_torch import cli, io, multi_scene_cli, simple_trainer
+from opensplat_tpu_torch import (bench, cli, io, multi_scene_cli,
+                                 simple_trainer)
 from opensplat_tpu_torch.config import TrainConfig
 from opensplat_tpu_torch.models.gaussians import init_model
 from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
@@ -27,7 +28,7 @@ from opensplat_tpu_torch.parallel.distributed import initialize_from_env
 from opensplat_tpu_torch.parallel.dp_trainer import DPTrainer
 from opensplat_tpu_torch.parallel.gaussian_shard import GSTrainer
 from opensplat_tpu_torch.tools import (kbench_raster, make_synthetic_project,
-                                       parity_report)
+                                       parity_report, profile_step)
 from opensplat_tpu_torch.train import Trainer, render_image, train_step
 
 # one intra-op thread per process: the suite runs one pytest-xdist
@@ -52,9 +53,12 @@ def _clean_env():
     return env
 
 
+# the JAX package, JAX, and the JAX package's bench.py at the repository
+# root (opensplat_tpu_torch.bench is the port's own)
 _NO_JAX = (
     "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-    " or m == 'opensplat_tpu' or m.startswith('opensplat_tpu.')]\n"
+    " or m == 'opensplat_tpu' or m.startswith('opensplat_tpu.')"
+    " or m == 'bench']\n"
     "assert not bad, bad\n"
 )
 
@@ -63,7 +67,7 @@ def test_no_jax_imports():
     """A fresh interpreter (this one already holds JAX) imports every
     port module and chip_smoke, then finds no jax / opensplat_tpu."""
     mods = _modules()
-    assert len(mods) >= 43
+    assert len(mods) >= 46
     for m in ("cli", "simple_trainer", "data.dataset", "data._image",
               "data.colmap", "data.nerfstudio", "data.opensfm",
               "data.openmvg", "data.point_io", "native.loader",
@@ -74,7 +78,8 @@ def test_no_jax_imports():
               "multi_scene_cli", "parallel", "parallel.mesh",
               "parallel.distributed", "parallel.launch",
               "parallel.sharded_train", "parallel.dp_trainer",
-              "parallel.gaussian_shard", "parallel.multi_scene"):
+              "parallel.gaussian_shard", "parallel.multi_scene", "bench",
+              "tools.profile_step", "tools.profiling"):
         assert f"opensplat_tpu_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -205,6 +210,14 @@ def _call_load_checkpoint():
     io.load_checkpoint("unused.npz")
 
 
+def _call_bench():
+    bench.main()
+
+
+def _call_profile_step():
+    profile_step.main()
+
+
 @pytest.mark.parametrize("call", [_call_init_model, _call_trainer,
                                   _call_train_step, _call_render_forward,
                                   _call_render_depth, _call_rasterize_fast,
@@ -215,8 +228,10 @@ def _call_load_checkpoint():
                                   _call_initialize_from_env,
                                   _call_simple_trainer,
                                   _call_make_synthetic_project,
-                                  _call_load_ply, _call_load_checkpoint])
-def test_entry_points_default_to_cuda(no_cuda, call):
+                                  _call_load_ply, _call_load_checkpoint,
+                                  _call_bench, _call_profile_step])
+def test_entry_points_default_to_cuda(no_cuda, monkeypatch, call):
+    monkeypatch.delenv("BENCH_CPU", raising=False)  # the bench's CPU switch
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
 
