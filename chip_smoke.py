@@ -103,7 +103,9 @@ Phases (any failure raises and the script exits non-zero):
      GSTrainer through a refine that grows capacity against Trainer;
      (c) the hybrid on 2 x 2 ranks for 3 steps against (a)'s one-rank
      run; (d) MultiSceneTrainer with two scenes against two Trainers
-     (bitwise), and multi_scene_cli --sharded over 2 ranks on phase 7's
+     (bitwise; its batched step launches each training kernel once a
+     step for both scenes), and multi_scene_cli --sharded over 2 ranks
+     on phase 7's
      project and a second one at 256 px; (e) cli --distributed
      --data-parallel -1 over 2 ranks on phase 7's project. Tolerances:
      parallel_phase's docstring. Every rank must launch the four
@@ -125,12 +127,30 @@ Phases (any failure raises and the script exits non-zero):
      Gaussians, 512 px, BENCH_ITERS=10 (DP 2, MP 2, the 2 x 2 hybrid,
      two scenes over 2 ranks), on gloo ranks sharing the card, each
      printing rank 0's one line.
+ 11. the batched multi-view step at the headline width on bench.py's
+     scene with seeds 0-3: (a) for S = 2 and S = 4 scenes and D = 2
+     cameras on one state, one launch of expand, raster_fwd, raster_bwd
+     and segsum on the views' batch equals one launch a view bitwise,
+     each counter advances by one per batched call, and the batched
+     kernels agree with their batched plain versions at phase 4's
+     tolerances; (b) 20 steps of multi_scene_train_step (S = 2, 4)
+     against S train_step_impl calls, losses and states bitwise, and 20
+     batched_train_steps (D = 2) against the loop formulation kept in
+     the phase (loss rtol 1e-5, params rtol 2e-4 atol 1e-5), each
+     kernel launched once a step; (c) host-clock scene-steps/s of the
+     batched step beside S single steps, launches a step (the kernels;
+     PyTorch's elementwise kernels by torch.profiler) and one
+     BENCH_SCENES=2 bench line (s2-vmap); then tests/
+     test_torch_grad_sanitize.py's degenerate splats through the CUDA
+     raster_bwd, one view and a batch of two: every gradient finite.
 The line before the last is the {"kernels": [...]} table (with each
 training kernel's phase-7 launches as `cli_launches`, expand's and
 segsum's over phase 8's tiled Trainer steps as `tiled_launches`, rank
 0's launches on each phase-9 path as `parallel_launches`, and phase
 10's three 1080 px steps' launches, device ms per launch and bound as
-`sweep_launches`, `device_ms_1080` and `bound_ms_1080`); the last line
+`sweep_launches`, `device_ms_1080` and `bound_ms_1080`, and phase 11's
+launches over each path's 20 batched steps as `batched_launches`); the
+last line
 is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
 """
@@ -261,12 +281,13 @@ def stage_inputs(state, cam, sh_deg, seed):
         bwd_args = fwd_args[:8] + (final_t, fidx, v_img, v_ft,
                                    binned.cand_index, h, w)
     return dict(expand=expand_args, fwd=fwd_args, bwd=bwd_args,
-                binned=binned, fidx=fidx, img=img)
+                binned=binned, fidx=fidx, img=img, proj=proj)
 
 
-def check_kernels(inp, label):
+def check_kernels(inp, label, direct=True):
     """Each kernel against its plain version on the same inputs; raises
-    on disagreement. Returns {kernel: max_abs_err} and the gradient rows."""
+    on disagreement. Returns {kernel: max_abs_err} and the gradient rows.
+    With `direct` raster_bwd is also held to the float64 direct sums."""
     import torch
 
     from opensplat_tpu_torch.ops.kernels import expand, raster, segsum
@@ -309,16 +330,17 @@ def check_kernels(inp, label):
         errs["raster_bwd"] = float((g_k - g_p).abs().max())
         # the moment form shared by kernel and plain version, against the
         # direct nine-term sums in float64, at the same tolerance
-        g_d = raster.rasterize_backward_direct(*inp["bwd"])
-        scale = float(g_d.abs().max()) + 1e-30
-        diff = (g_k.double() - g_d).abs()
-        bad = diff > 1e-3 * g_d.abs() + 1e-5 * scale
-        if bool(bad.any()):
-            raise AssertionError(
-                f"[{label}] raster_bwd: {int(bad.sum())} of {bad.numel()} "
-                f"gradient values outside rtol 1e-3, atol 1e-5*max|g| of "
-                f"the direct float64 sums")
-        errs["raster_bwd_direct"] = float(diff.max())
+        if direct:
+            g_d = raster.rasterize_backward_direct(*inp["bwd"])
+            scale = float(g_d.abs().max()) + 1e-30
+            diff = (g_k.double() - g_d).abs()
+            bad = diff > 1e-3 * g_d.abs() + 1e-5 * scale
+            if bool(bad.any()):
+                raise AssertionError(
+                    f"[{label}] raster_bwd: {int(bad.sum())} of "
+                    f"{bad.numel()} gradient values outside rtol 1e-3, "
+                    f"atol 1e-5*max|g| of the direct float64 sums")
+            errs["raster_bwd_direct"] = float(diff.max())
 
         args = (g_k, b.cand_start, b.cand_count)
         s_k = segsum.segment_sum(*args)
@@ -1523,7 +1545,7 @@ def load_ranks(work, tag, world):
     return rs
 
 
-def close(label, got, want, rtol, atol):
+def close(label, got, want, rtol, atol, phase=9):
     """Raise unless got is within rtol/atol of want; returns the worst
     absolute difference."""
     got, want = np.asarray(got), np.asarray(want)
@@ -1531,8 +1553,8 @@ def close(label, got, want, rtol, atol):
                                                   atol=atol):
         bad = (np.abs(got - want) > atol + rtol * np.abs(want)).sum() \
             if got.shape == want.shape else "shape"
-        raise AssertionError(f"phase 9 {label}: {bad} entries outside rtol "
-                             f"{rtol} atol {atol}")
+        raise AssertionError(f"phase {phase} {label}: {bad} entries "
+                             f"outside rtol {rtol} atol {atol}")
     return float(np.abs(got - want).max()) if got.size else 0.0
 
 
@@ -1631,14 +1653,19 @@ def parallel_phase(n_points, size, steps, device, work, project, smi):
                             cfg, device=device)
     solo = [Trainer(st, c, cfg, device=device) for st, c in scenes]
     wrappers = training_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    ms_launches = dict.fromkeys(wrappers, 0)
     for step in range(1, steps + 1):
+        before = {k: fn.launches for k, fn in wrappers.items()}
         per = msc.run_step(step).metrics["loss_per_scene"].tolist()
+        for k, fn in wrappers.items():  # the batched step's alone
+            ms_launches[k] += fn.launches - before[k]
         if per != [t.run_step(step).loss for t in solo]:
             raise AssertionError(f"phase 9 multi-scene: step {step} losses "
                                  f"{per} differ from the Trainers'")
-    ms_launches = {k: fn.launches for k, fn in wrappers.items()}
+    if cuda and any(n != steps for n in ms_launches.values()):
+        raise AssertionError(f"phase 9 multi-scene: launches {ms_launches} "
+                             f"in {steps} steps of both scenes (one a "
+                             "step)")
     for got, t in zip(msc.scene_states(), solo):
         rows = t.state.alive.shape[0]
         if not torch.equal(got.alive[:rows], t.state.alive) or \
@@ -1651,7 +1678,8 @@ def parallel_phase(n_points, size, steps, device, work, project, smi):
     print(f"parallel multi-scene: 2 scenes x {n_points} Gaussians, {size} "
           f"px, {steps} steps: losses and alive rows equal to two "
           f"Trainers' bitwise (capacity {msc.state.alive.shape[1]}); "
-          f"launches (both scenes) {json.dumps(ms_launches)}", flush=True)
+          f"launches of the batched steps (both scenes, one a step) "
+          f"{json.dumps(ms_launches)}", flush=True)
     dist.destroy_process_group()
 
     # (d) and (e): the CLIs over 2 ranks, at half size
@@ -1954,6 +1982,470 @@ def sweep_phase(smi, peak, work):
     return launches, dev_ms, bnd, errs
 
 
+# ---- phase 11: the batched multi-view step --------------------------------
+
+def stage_views(pairs, sh_deg, seed, per_view_bg):
+    """Phase 11's kernel inputs for V views: each (state, camera) pair
+    staged alone (stage_inputs), and the V views as one batch: their
+    fields concatenated view-major, binned as one stream, the forward run
+    once over it. The background is (V, 3) with per_view_bg (the
+    kernels' bg_stride 3), else the views' shared (3,)."""
+    import torch
+
+    from opensplat_tpu_torch.ops.binning import bin_gaussians
+    from opensplat_tpu_torch.ops.kernels import raster
+    from opensplat_tpu_torch.ops.projection import ProjectedGaussians
+
+    views = [stage_inputs(st, cam, sh_deg, seed + i)
+             for i, (st, cam) in enumerate(pairs)]
+    nv = len(views)
+    h, w = views[0]["fwd"][8:10]
+    c = views[0]["fwd"][3].shape[0]
+    with torch.no_grad():
+        proj = ProjectedGaussians(*(torch.stack(f) for f in
+                                    zip(*(v["proj"] for v in views))))
+        opac = torch.stack([v["fwd"][5] for v in views])
+        binned = bin_gaussians(proj, h, w, opac)
+
+        def cat(key, i):
+            return torch.cat([v[key][i] for v in views]).contiguous()
+
+        cnt = cat("expand", 0)
+        starts = (torch.cumsum(cnt.long(), 0) - cnt.long()).contiguous()
+        ex = views[0]["expand"]
+        expand_args = ((cnt, starts, binned.n_cands)
+                       + tuple(cat("expand", i) for i in range(3, 9))
+                       + (ex[9], ex[10], c))
+        bg = views[0]["fwd"][7]
+        if per_view_bg:
+            bg = bg.repeat(nv, 1).contiguous()
+        fwd_args = ((binned.gauss_ids, binned.tile_start, binned.tile_end)
+                    + tuple(cat("fwd", i) for i in range(3, 7))
+                    + (bg, h, w, nv))
+        img, final_t, fidx = raster.rasterize_forward(*fwd_args)
+        bwd_args = fwd_args[:8] + (
+            final_t, fidx, torch.stack([v["bwd"][10] for v in views]),
+            torch.stack([v["bwd"][11] for v in views]), binned.cand_index,
+            h, w, nv)
+    return views, dict(expand=expand_args, fwd=fwd_args, bwd=bwd_args,
+                       binned=binned, fidx=fidx, img=img)
+
+
+def check_batched_kernels(views, batch, label):
+    """Each training kernel launched once on the V views' batch against
+    one launch a view, bitwise: keys (a view's offset by its first tile;
+    culled rows the batch's sentinel), gids (offset by the view's first
+    Gaussian; culled ones V * C), kept counts, image, final T, final_idx
+    (offset by the view's first record), gradient rows (at the view's
+    first candidate row) and segment sums. Each counter must advance by
+    one per batched call. Then the batched kernels against their batched
+    plain versions at phase 4's tolerances (check_kernels, without the
+    float64 direct sums). Returns check_kernels' errors."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels import expand, raster, segsum
+
+    wrappers = training_wrappers()
+    nv, c = len(views), batch["fwd"][3].shape[0] // len(views)
+    n_tiles = batch["expand"][10]
+    b = batch["binned"]
+    with torch.no_grad():
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        kb, gb, keptb = expand.expand(*batch["expand"])
+        img_b, ft_b, fi_b = raster.rasterize_forward(*batch["fwd"])
+        rows_b = raster.rasterize_backward(*batch["bwd"])
+        sums_b = segsum.segment_sum(rows_b, b.cand_start, b.cand_count)
+        steps = {k: fn.launches - before[k] for k, fn in wrappers.items()}
+        if set(steps.values()) != {int(kb.is_cuda)}:
+            raise AssertionError(f"[{label}] launches per batched call "
+                                 f"{steps}")
+        sent = ((nv * n_tiles) << 32) | expand.INT32_MAX
+        row0 = 0
+        for v, inp in enumerate(views):
+            k, g, kept = expand.expand(*inp["expand"])
+            vb = inp["binned"]
+            rows = slice(row0, row0 + k.shape[0])
+            keep = g < c
+            same = {
+                "keys": torch.equal(kb[rows], torch.where(
+                    keep, k + ((v * n_tiles) << 32), torch.full_like(k, sent))),
+                "gids": torch.equal(gb[rows], torch.where(keep, g + v * c,
+                                                          nv * c)),
+                "kept": torch.equal(keptb[v * c:(v + 1) * c], kept)}
+            img, ft, fi = raster.rasterize_forward(*inp["fwd"])
+            base = int(b.tile_start[v * n_tiles])
+            same.update({
+                "image": torch.equal(img_b[v], img),
+                "final_t": torch.equal(ft_b[v], ft),
+                "final_idx": torch.equal(
+                    fi_b[v * n_tiles:(v + 1) * n_tiles],
+                    torch.where(fi == raster.STOP_SENTINEL, fi, fi + base))})
+            g_rows = raster.rasterize_backward(*inp["bwd"])
+            same["rows"] = torch.equal(rows_b[rows], g_rows)
+            same["sums"] = torch.equal(
+                sums_b[v * c:(v + 1) * c],
+                segsum.segment_sum(g_rows, vb.cand_start, vb.cand_count))
+            if not all(same.values()):
+                raise AssertionError(f"[{label}] view {v}: the batched "
+                                     f"launch differs: {same}")
+            row0 += k.shape[0]
+    print(f"[{label}] one launch of each kernel for {nv} views equals the "
+          f"views' own launches bitwise (keys, gids, kept, image, final T, "
+          f"final_idx, rows, sums); {b.n_cands} candidate rows", flush=True)
+    errs, _ = check_kernels(batch, label, direct=False)
+    return errs
+
+
+def clone_state(state):
+    from opensplat_tpu_torch.models.gaussians import state_map
+
+    return state_map(lambda x: x.clone(), state)
+
+
+def states_equal(a, b):
+    """Parameters, Adam moments and count, stats and alive mask equal to
+    the bit (torch.equal)."""
+    import torch
+
+    from opensplat_tpu_torch.models.gaussians import PARAM_NAMES
+
+    stats = ("xys_grad_norm", "vis_counts", "max_2d_size", "initialized")
+    pairs = ([(a.alive, b.alive)]
+             + [(getattr(a.params, k), getattr(b.params, k))
+                for k in PARAM_NAMES]
+             + [(a.opt.mu[k], b.opt.mu[k]) for k in PARAM_NAMES]
+             + [(a.opt.nu[k], b.opt.nu[k]) for k in PARAM_NAMES]
+             + [(getattr(a.stats, k), getattr(b.stats, k)) for k in stats])
+    return a.opt.count == b.opt.count and all(
+        torch.equal(x, y) for x, y in pairs)
+
+
+def step_anatomy(fn, device):
+    """One call of fn under torch.profiler: (PyTorch's elementwise
+    kernels launched, as recorded: vectorized_elementwise_kernel and
+    elementwise_kernel; the device ms of all kernels; kernel_device_ms of
+    the training kernels). No device rows on the CPU."""
+    import torch
+
+    from opensplat_tpu_torch.tools import profiling
+
+    rows = profiling.device_rows(fn, 1, device)
+    if torch.device(device).type != "cuda":
+        return 0, 0.0, {}
+    elem = sum(n for name, _, n in profiling.by_stem(rows)
+               if "elementwise_kernel" in name)
+    return elem, sum(t * n for _, t, n in rows), kernel_device_ms(rows)
+
+
+def multi_scene_steps(scenes, n_steps, sh_deg, cfg):
+    """n_steps of multi_scene_train_step over the S scenes against S
+    train_step_impl calls on clones, each scene seeing camera step % 3:
+    every step's losses and the final states equal to the bit. Returns
+    (the batched steps' launches, the single steps' launches, host
+    seconds of the batched and the single steps over the second half,
+    step_anatomy of one batched step and of S single steps)."""
+    import torch
+
+    from opensplat_tpu_torch.parallel.multi_scene import (
+        multi_scene_train_step, stack_states, unstack_states)
+    from opensplat_tpu_torch.train import train_step_impl
+
+    s = len(scenes)
+    singles = [clone_state(st) for st, _ in scenes]
+    stacked = stack_states([clone_state(st) for st, _ in scenes])
+    size = scenes[0][1][0].width
+    dev = stacked.device
+    wrappers = training_wrappers()
+    launches = {"batched": dict.fromkeys(wrappers, 0),
+                "single": dict.fromkeys(wrappers, 0)}
+    secs = {"batched": 0.0, "single": 0.0}
+
+    def views(step):
+        cams = [c[step % 3] for _, c in scenes]
+        c2w = torch.as_tensor(np.stack([c.cam_to_world for c in cams]),
+                              device=dev)
+        gts = torch.stack([torch.as_tensor(c.get_image(1), device=dev)
+                           for c in cams])
+        return cams, c2w, gts
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def run(kind, fn, step):
+        before = {k: w.launches for k, w in wrappers.items()}
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        if step > n_steps // 2:
+            secs[kind] += time.perf_counter() - t0
+        for k, w in wrappers.items():
+            launches[kind][k] += w.launches - before[k]
+        return out
+
+    def batched(step):
+        cams, c2w, gts = views(step)
+        return lambda: multi_scene_train_step(
+            stacked, c2w, [c.fx for c in cams], [c.fy for c in cams],
+            [c.cx for c in cams], [c.cy for c in cams], gts, cfg.lr_means,
+            size, size, sh_deg, cfg, True)
+
+    def single(step):
+        cams, c2w, gts = views(step)
+        return lambda: [train_step_impl(
+            st, c2w[i], cams[i].fx, cams[i].fy, cams[i].cx, cams[i].cy,
+            gts[i], cfg.lr_means, size, size, sh_deg, cfg, True)[1]
+            for i, st in enumerate(singles)]
+
+    for step in range(1, n_steps + 1):
+        _, m = run("batched", batched(step), step)
+        ms = run("single", single(step), step)
+        got, want = m["loss"].tolist(), [float(x["loss"]) for x in ms]
+        if got != want:
+            raise AssertionError(f"multi-scene S={s} step {step}: losses "
+                                 f"{got} against the single steps' {want}")
+    for v, st in enumerate(unstack_states(stacked, s)):
+        if not states_equal(st, singles[v]):
+            raise AssertionError(f"multi-scene S={s}: scene {v}'s state "
+                                 "differs from its single steps'")
+    anatomy = (step_anatomy(batched(n_steps + 1), dev),
+               step_anatomy(single(n_steps + 1), dev))
+    return launches["batched"], launches["single"], secs, anatomy
+
+
+def loop_camera_step(state, c2w, cams, gts, lr, size, sh_deg, cfg):
+    """The camera batch as a loop (the port's formulation before the
+    batched render): each camera rendered alone into one autograd graph,
+    the losses summed over the cameras and divided by D, then Adam and
+    the batched densify-stat fold. Returns (state, loss)."""
+    import torch
+
+    from opensplat_tpu_torch.models.gaussians import GaussianParams
+    from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
+                                                        render_forward)
+    from opensplat_tpu_torch.ops.ssim import main_loss
+    from opensplat_tpu_torch.optim.adam import adam_update
+    from opensplat_tpu_torch.parallel.sharded_train import (
+        accumulate_stats_batched)
+    from opensplat_tpu_torch.train import learning_rates, leaf_grads
+
+    dev = state.device
+    bg = torch.tensor(DEFAULT_BACKGROUND, device=dev)
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in state.params.as_dict().items()}
+    d = len(cams)
+    shifts = torch.zeros((d,) + state.alive.shape + (2,), device=dev,
+                         requires_grad=True)
+    loss, radii = 0.0, []
+    for i, cam in enumerate(cams):
+        out = render_forward(GaussianParams(**leaves), state.alive, c2w[i],
+                             cam.fx, cam.fy, cam.cx, cam.cy, size, size,
+                             sh_deg, bg, xys_shift=shifts[i], device=dev)
+        loss = loss + main_loss(out.rgb, gts[i], cfg.ssim_weight)
+        radii.append(out.radii)
+    loss = loss / d
+    g_params, g_shifts = leaf_grads(loss, leaves, shifts)
+    adam_update(state.params.as_dict(), g_params, state.opt,
+                learning_rates(cfg, lr), state.alive)
+    state.stats = accumulate_stats_batched(state.stats, g_shifts,
+                                           torch.stack(radii), size, size)
+    return state, loss.detach()
+
+
+def camera_batch_steps(state, cams, n_steps, sh_deg, cfg):
+    """n_steps of batched_train_step over D = len(cams) cameras of one
+    state, each from the state the last batched step left, against the
+    loop formulation (loop_camera_step) from a clone of the same state:
+    loss rtol 1e-5, parameters rtol 2e-4 atol 1e-5
+    (tests/test_torch_parallel.py:340-370). Returns the batched steps'
+    launches and the worst parameter differences."""
+    import torch
+
+    from opensplat_tpu_torch.parallel.sharded_train import batched_train_step
+
+    dev = state.device
+    size = cams[0].width
+    c2w = torch.as_tensor(np.stack([c.cam_to_world for c in cams]),
+                          device=dev)
+    gts = torch.stack([torch.as_tensor(c.get_image(1), device=dev)
+                       for c in cams])
+    wrappers = training_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    counted = dict.fromkeys(wrappers, 0)
+    worst = {}
+    for step in range(1, n_steps + 1):
+        ref, ref_loss = loop_camera_step(clone_state(state), c2w, cams, gts,
+                                         cfg.lr_means, size, sh_deg, cfg)
+        before = {k: fn.launches for k, fn in wrappers.items()}
+        state, m = batched_train_step(
+            state, c2w, [c.fx for c in cams], [c.fy for c in cams],
+            [c.cx for c in cams], [c.cy for c in cams], gts, cfg.lr_means,
+            size, size, sh_deg, cfg, True)
+        for k, fn in wrappers.items():
+            counted[k] += fn.launches - before[k]
+        close(f"camera batch step {step} loss", float(m["loss"]),
+              float(ref_loss), 1e-5, 0, phase=11)
+        for k, v in state.params.as_dict().items():
+            worst[k] = max(worst.get(k, 0.0), close(
+                f"camera batch step {step} {k}", v.cpu().numpy(),
+                getattr(ref.params, k).cpu().numpy(), 2e-4, 1e-5, phase=11))
+    return counted, worst
+
+
+def degenerate_check(device="cuda"):
+    """tests/test_torch_grad_sanitize.py's state on the card (16 of 1024
+    splats with log-scales (-15.1, -1.78, -8.55) and opacity logit 12,
+    64 px): finite gradients for every leaf through render_forward +
+    main_loss, one view and a batch of two cameras, raster_bwd launched
+    once each."""
+    import torch
+
+    from opensplat_tpu_torch.models.gaussians import (PARAM_NAMES,
+                                                      GaussianParams,
+                                                      init_model)
+    from opensplat_tpu_torch.models.splat_model import (DEFAULT_BACKGROUND,
+                                                        render_forward)
+    from opensplat_tpu_torch.ops.kernels import raster
+    from opensplat_tpu_torch.ops.ssim import main_loss
+
+    rng = np.random.default_rng(0)
+    n, size = 1024, 64
+    pts = np.concatenate([rng.uniform(-1.0, 1.0, (n, 2)),
+                          rng.uniform(-8.0, -4.0, (n, 1))],
+                         axis=-1).astype(np.float32)
+    rgb = rng.integers(0, 255, (n, 3)).astype(np.uint8)
+    state = init_model(pts, rgb, sh_degree=1, capacity=n, seed=0,
+                       device=device)
+    bad = torch.as_tensor(rng.choice(n, 16, replace=False), device=device)
+    state.params.scales[bad] = torch.tensor([-15.1, -1.78, -8.55],
+                                            device=device)
+    state.params.opacities[bad] = 12.0
+    gt = torch.as_tensor(np.random.default_rng(1).uniform(
+        0, 1, (size, size, 3)).astype(np.float32), device=device)
+    bg = torch.tensor(DEFAULT_BACKGROUND, device=device)
+    need = 1 if torch.device(device).type == "cuda" else 0
+    found = {}
+    for views in (None, 2):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in state.params.as_dict().items()}
+        c2w = torch.eye(4, device=device)
+        f, cxy = 80.0, size / 2
+        if views:
+            c2w = c2w.repeat(views, 1, 1)
+            c2w[1, 0, 3] = 0.05
+            f, cxy = [f] * views, [cxy] * views
+        raster.rasterize_backward.launches = 0
+        out = render_forward(GaussianParams(**leaves), state.alive, c2w, f,
+                             f, cxy, cxy, size, size, 1, bg, device=device)
+        loss = main_loss(out.rgb, gt if views is None else
+                         gt.expand(views, size, size, 3), 0.2).sum()
+        grads = torch.autograd.grad(loss, [leaves[k] for k in PARAM_NAMES])
+        if raster.rasterize_backward.launches != need:
+            raise AssertionError("degenerate splats: raster_bwd launched "
+                                 f"{raster.rasterize_backward.launches}")
+        for k, g in zip(PARAM_NAMES, grads):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"degenerate splats ({views or 1} "
+                                     f"views): nonfinite {k} gradients")
+        found[views or 1] = float(grads[0].abs().max())
+        if not found[views or 1] > 0:
+            raise AssertionError("degenerate splats: zero means gradient")
+    print("degenerate splats (16 of 1024, log-scales (-15.1, -1.78, "
+          "-8.55), opacity logit 12): every leaf's gradient finite through "
+          "the CUDA raster_bwd, one view and a batch of two; max |d means| "
+          + json.dumps(found), flush=True)
+
+
+def batched_phase(n_points, size, n_steps, smi, device="cuda"):
+    """Phase 11: the batched multi-view step at the headline width
+    (n_points Gaussians, size px, SH degree 3, bench.py's scene with
+    seeds 0-3). (a) For S = 2 and S = 4 scenes and for D = 2 cameras on
+    one state: check_batched_kernels. (b) n_steps of
+    multi_scene_train_step (S = 2, 4) against S train_step_impl calls,
+    bitwise (multi_scene_steps), each kernel launched once a step; n_steps
+    batched_train_steps (D = 2, anisotropic scales so that the quats
+    carry real gradients) against the loop formulation
+    (camera_batch_steps), each kernel launched once a step. (c) Host-clock
+    scene-steps/s of the batched step beside S single steps, launches a
+    step of the four kernels and of PyTorch's elementwise kernels, and
+    one BENCH_SCENES=2 bench line, with the card. Then the degenerate
+    splats (degenerate_check). Returns {kernel: {path: launches}} of the
+    batched steps."""
+    import torch
+
+    from opensplat_tpu_torch.config import TrainConfig
+
+    t_phase = time.perf_counter()
+    cuda = torch.device(device).type == "cuda"
+    need = n_steps if cuda else 0
+    scenes = [make_scene(n_points, size, seed, device) for seed in range(4)]
+    for s in (2, 4):
+        views, batch = stage_views([(st, c[0]) for st, c in scenes[:s]], 3,
+                                   10 * s, per_view_bg=True)
+        check_batched_kernels(views, batch, f"{s} scenes x {n_points} g, "
+                                            f"{size} px")
+    st0, cams0 = scenes[0]
+    views, batch = stage_views([(st0, cams0[0]), (st0, cams0[1])], 3, 50,
+                               per_view_bg=False)
+    check_batched_kernels(views, batch, f"2 cameras x {n_points} g, {size} "
+                                        "px")
+    del views, batch
+
+    cfg = TrainConfig(num_downscales=0)
+    out = {}
+    for s in (2, 4):
+        got, single, secs, (a_b, a_s) = multi_scene_steps(
+            scenes[:s], n_steps, 3, cfg)
+        if any(n != need for n in got.values()):
+            raise AssertionError(f"multi-scene S={s}: launches {got} in "
+                                 f"{n_steps} batched steps")
+        out[f"s{s}"] = got
+        half = n_steps - n_steps // 2
+        print(f"batched multi-scene S={s}: {n_steps} steps, losses and "
+              f"states equal to {s} single steps' bitwise; launches "
+              f"(batched) {json.dumps(got)}, (single) "
+              f"{json.dumps(single)}; scene-steps/s (host clock, last "
+              f"{half} steps) batched {s * half / secs['batched']:.3f}, "
+              f"single {s * half / secs['single']:.3f}; torch.profiler, "
+              f"one batched step against {s} single steps: elementwise "
+              f"launches recorded {a_b[0]} against {a_s[0]}, device ms "
+              f"{a_b[1]:.4f} against {a_s[1]:.4f}, each training kernel's "
+              f"device ms per launch (launches recorded) "
+              f"{json.dumps(a_b[2])} against {json.dumps(a_s[2])} "
+              f"({smi})", flush=True)
+    st_a = clone_state(st0)
+    st_a.params = anisotropic(st_a.params)
+    got, worst = camera_batch_steps(st_a, cams0[:2], n_steps, 3, cfg)
+    if any(n != need for n in got.values()):
+        raise AssertionError(f"camera batch: launches {got} in {n_steps} "
+                             "steps")
+    out["d2"] = got
+    print(f"batched cameras D=2: {n_steps} batched_train_steps against the "
+          f"loop formulation within loss rtol 1e-5, params rtol 2e-4 atol "
+          f"1e-5 (worst {json.dumps(worst)}); launches {json.dumps(got)}",
+          flush=True)
+    del scenes, st0, st_a
+    env = {"BENCH_SCENES": "2", "BENCH_POINTS": str(n_points),
+           "BENCH_RES": str(size)}
+    if cuda:
+        torch.cuda.empty_cache()
+        name, limit = (x.strip() for x in smi.split(","))
+        card = {"platform": "gpu", "name": name, "power_limit": limit}
+    else:
+        env.update(BENCH_CPU="1", BENCH_ITERS="2")
+        card = {"platform": "cpu"}
+    line = bench_lines(env, "scenes-vmap", card)
+    want = f"scene_steps_per_sec[fast,{n_points}g,{size}px,s2-vmap]"
+    if len(line) != 1 or line[0]["metric"] != want:
+        raise AssertionError(f"bench s2-vmap: {line}")
+    degenerate_check(device)
+    print(f"batched phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {k: {p: c[k] for p, c in out.items()} for k in training_wrappers()}
+
+
 def main():
     try:
         import torch
@@ -2173,6 +2665,9 @@ def main():
         os.makedirs(os.path.join(work, "trace"))
         sweep_launches, dev_1080, bnd_1080, _ = sweep_phase(smi, peak, work)
         done(10)
+    # phase 11: the batched multi-view step, and the degenerate splats
+    batched_launches = batched_phase(131072, 512, 20, smi)
+    done(11)
 
     table = []
     for k, (src, rep) in KERNELS.items():
@@ -2189,6 +2684,7 @@ def main():
             "sweep_launches": sweep_launches.get(k),
             "device_ms_1080": dev_1080.get(k, (None,))[0],
             "bound_ms_1080": bnd_1080.get(k, (None,))[0],
+            "batched_launches": batched_launches.get(k),
         })
     for row in table:
         print(f"  {row['name']:<10} {row['ms']:.4f} ms  device "

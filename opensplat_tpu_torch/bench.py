@@ -21,8 +21,10 @@ backend and whether the ranks share a card:
   BENCH_DP=D             camera DP, one camera a rank (dp_train_step);
   BENCH_MP=M             Gaussian sharding over M ranks (gs_train_step);
   BENCH_DP=D BENCH_MP=M  the hybrid on a D x M grid (dpgs_train_step);
-  BENCH_SCENES=S         S scenes a step in one process, a loop of steps
-                         (multi_scene_train_step; the JAX bench vmaps);
+  BENCH_SCENES=S         S scenes a step in one process, one batched
+                         step (multi_scene_train_step: one launch of
+                         each kernel for all scenes, as the JAX bench's
+                         vmap);
   BENCH_SCENES_SHARDED=1 the S scenes over S ranks
                          (sharded_multi_scene_step).
 
@@ -346,10 +348,10 @@ def _rank_main(dp, mp, scenes, n_points, h, renderer, n_iters):
             flush=True)
 
 
-def run_scenes_loop(s: int, n_points: int, h: int, renderer: str, dev,
-                    n_iters: int) -> dict:
-    """S scenes a step in this process: multi_scene_train_step, a loop
-    of train steps over the scenes (the JAX bench's s{S}-vmap)."""
+def run_scenes(s: int, n_points: int, h: int, renderer: str, dev,
+               n_iters: int) -> dict:
+    """S scenes a step in this process: multi_scene_train_step, one
+    batched step over the stacked scenes (the JAX bench's s{S}-vmap)."""
     from .parallel.multi_scene import multi_scene_train_step, stack_states
 
     cfg, lr = _config(n_points)
@@ -364,7 +366,7 @@ def run_scenes_loop(s: int, n_points: int, h: int, renderer: str, dev,
                                              h, h, 3, cfg, True, renderer)
     _, m, dt = timed_window(step, stack_states(states), n_iters, dev)
     rate = n_iters * s / dt
-    rec = _line(f"scene_steps_per_sec[{renderer},{n_points}g,{h}px,s{s}-loop]",
+    rec = _line(f"scene_steps_per_sec[{renderer},{n_points}g,{h}px,s{s}-vmap]",
                 rate, f"scene-steps/s ({s} scenes/step)",
                 _derived(rate, h, h, int(torch.mean(m["n_alive"].double()))),
                 dev)
@@ -392,7 +394,7 @@ def main() -> int:
             _launch(world, dev)
         return 0
     if scenes:
-        run_scenes_loop(scenes, n_points, h, renderer, dev, n_iters)
+        run_scenes(scenes, n_points, h, renderer, dev, n_iters)
     elif env.get("BENCH_POINTS") or env.get("BENCH_RES"):
         run_single(n_points, h, renderer, dev, n_iters)
     else:

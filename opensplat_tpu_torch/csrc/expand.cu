@@ -4,15 +4,24 @@
 // pallas_expand_bin). Gaussian g owns the candidate rows starts[g] ..
 // starts[g] + cnt[g], one per tile of its tile bounding box in row-major
 // order, and row starts[g] + off holds
-//   key = (tile << 32) | depth_bits   and   gid = g
+//   key = ((v * n_tiles + tile) << 32) | depth_bits   and   gid = g
 // for a kept (Gaussian, tile) pair, and the sentinel key
-// (n_tiles << 32) | INT32_MAX with gid = C for a culled one; kept[g]
-// counts g's kept rows. The cull is binning.py:293-342 operation for
-// operation: means quantised to 0.25 px (saturated coordinates always
-// keep), conic A/B/C and s_max = ln(opacity / alpha_thresh) rounded to
-// bf16 (round to nearest even), 0.13 px position slack, the 2.1 * 2^-8 *
-// S_corner compensation and the -0.05 margin — so the kept set is
-// bit-identical to the JAX package's. With cull = 0 (the JAX package's
+// ((V * n_tiles) << 32) | INT32_MAX with gid = C for a culled one;
+// kept[g] counts g's kept rows. The C Gaussians are V views'
+// projections concatenated view-major, per_view a view, and
+// v = g / per_view is g's view: the vmapped batch axis that Pallas maps
+// onto the TPU kernel's grid goes into the sort key here, so one launch
+// and one sort serve every view, and a view's keys, rows and counts are
+// the ones a launch on that view alone gives, offset by its first tile.
+// With V = 1 the keys are the single view's, and the kernel is its
+// instance without the view index (the VIEWS template flag), which cost
+// a single view 5% of its time in an instance with it. The cull is
+// binning.py:293-342 operation for operation: means quantised to 0.25
+// px (saturated coordinates always keep), conic A/B/C and s_max =
+// ln(opacity / alpha_thresh) rounded to bf16 (round to nearest even),
+// 0.13 px position slack, the 2.1 * 2^-8 * S_corner compensation and
+// the -0.05 margin — so the kept set is bit-identical to the JAX
+// package's. With cull = 0 (the JAX package's
 // pallas_expand_bin(..., cull=False), the reference's tile-bbox
 // intersections, forward.cu:107-143) every row keeps and s_max is not
 // read; the kernel is templated on the mode, so the culling build is the
@@ -95,16 +104,20 @@ struct Smem {
   int sat[G];     // saturated mean: every row keeps
 };
 
-template <bool CULL>
+// VIEWS: more than one view. The single view's instance is the kernel
+// without the view axis, so the view index costs it nothing.
+template <bool CULL, bool VIEWS>
 __global__ void __launch_bounds__(THREADS) expand_kernel(
-    int C, const int* __restrict__ cnt, const int64_t* __restrict__ starts,
+    int C, int per_view, const int* __restrict__ cnt,
+    const int64_t* __restrict__ starts,
     const int* __restrict__ tile_min, const int* __restrict__ tile_max,
     const float* __restrict__ depths, const float* __restrict__ xys,
     const float* __restrict__ conics, const float* __restrict__ s_max,
-    int tb_x, int n_tiles, int64_t* __restrict__ keys,
+    int tb_x, int n_tiles, int n_views, int64_t* __restrict__ keys,
     int* __restrict__ gids, int* __restrict__ kept) {
   __shared__ Smem S;
   __shared__ int s_rows;
+  __shared__ int s_vtile[VIEWS ? G : 1];  // v * n_tiles of each Gaussian
   const int tid = threadIdx.x;
   const int g0 = blockIdx.x * G;
   const int n_g = min(G, C - g0);
@@ -118,6 +131,7 @@ __global__ void __launch_bounds__(THREADS) expand_kernel(
       n = max(cnt[g], 0);
       off = static_cast<int>(starts[g] - w0);
       const int x0 = tile_min[2 * g];
+      if constexpr (VIEWS) s_vtile[tid] = (g / per_view) * n_tiles;
       S.x0[tid] = x0;
       S.y0[tid] = tile_min[2 * g + 1];
       S.bw[tid] = max(tile_max[2 * g] - x0, 1);
@@ -141,7 +155,8 @@ __global__ void __launch_bounds__(THREADS) expand_kernel(
 
   const int n_rows = s_rows;
   const int lane = tid & 31;
-  const int64_t sentinel = (static_cast<int64_t>(n_tiles) << 32) | 0x7FFFFFFF;
+  const int64_t sentinel =
+      (static_cast<int64_t>(n_views * n_tiles) << 32) | 0x7FFFFFFF;
   for (int base = 0; base < n_rows; base += THREADS) {
     const int r = base + tid;
     const bool valid = r < n_rows;
@@ -166,7 +181,8 @@ __global__ void __launch_bounds__(THREADS) expand_kernel(
                                              static_cast<float>(ty));
         keep = (cs.y - ms) >= -0.05f;
       }
-      const int64_t tile = static_cast<int64_t>(ty) * tb_x + tx;
+      int64_t tile = static_cast<int64_t>(ty) * tb_x + tx;
+      if constexpr (VIEWS) tile += s_vtile[j];
       keys[w0 + r] = keep ? ((tile << 32) | S.depth[j]) : sentinel;
       gids[w0 + r] = keep ? g0 + j : C;
     }
@@ -182,21 +198,27 @@ __global__ void __launch_bounds__(THREADS) expand_kernel(
 
 }  // namespace
 
-OSK_API int osk_expand(int C, const void* cnt, const void* starts,
-                       const void* tile_min, const void* tile_max,
-                       const void* depths, const void* xys, const void* conics,
+OSK_API int osk_expand(int C, int per_view, const void* cnt,
+                       const void* starts, const void* tile_min,
+                       const void* tile_max, const void* depths,
+                       const void* xys, const void* conics,
                        const void* s_max, int tb_x, int n_tiles, int cull,
                        void* keys, void* gids, void* kept, void* stream) {
-  if (C > 0) {
-    auto kernel = cull ? expand_kernel<true> : expand_kernel<false>;
+  if (C > 0 && per_view > 0) {
+    const bool views = per_view < C;
+    auto kernel = cull ? (views ? expand_kernel<true, true>
+                                : expand_kernel<true, false>)
+                       : (views ? expand_kernel<false, true>
+                                : expand_kernel<false, false>);
     kernel<<<(C + G - 1) / G, THREADS, 0,
              static_cast<cudaStream_t>(stream)>>>(
-        C, static_cast<const int*>(cnt), static_cast<const int64_t*>(starts),
+        C, per_view, static_cast<const int*>(cnt),
+        static_cast<const int64_t*>(starts),
         static_cast<const int*>(tile_min), static_cast<const int*>(tile_max),
         static_cast<const float*>(depths), static_cast<const float*>(xys),
         static_cast<const float*>(conics), static_cast<const float*>(s_max),
-        tb_x, n_tiles, static_cast<int64_t*>(keys), static_cast<int*>(gids),
-        static_cast<int*>(kept));
+        tb_x, n_tiles, C / per_view, static_cast<int64_t*>(keys),
+        static_cast<int*>(gids), static_cast<int*>(kept));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -207,5 +229,5 @@ OSK_API int osk_expand_info(void* out) {
   int* o = static_cast<int*>(out);
   o[0] = G;
   o[1] = THREADS;
-  return osk::kernel_info(expand_kernel<true>, THREADS, 0, o + 2);
+  return osk::kernel_info(expand_kernel<true, false>, THREADS, 0, o + 2);
 }

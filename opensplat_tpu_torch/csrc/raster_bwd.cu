@@ -2,7 +2,12 @@
 //
 // Replaces opensplat_tpu/ops/pallas/raster.py::_bwd_kernel (launched by
 // pallas_rasterize_backward). One CTA per 16x16 tile, one thread per
-// pixel. The tile replays its records back to front from its replay limit
+// pixel; over V views of one size (the vmapped batch axis) the grid is
+// V * n_tiles, and CTA b replays tile b % n_tiles of view b / n_tiles
+// against that view's planes (final T, cotangents, background bg[v] at
+// bg_stride), as raster_fwd.cu does; rows go to out_index of the one
+// stream, so each view's rows are those of a launch on the view alone.
+// The tile replays its records back to front from its replay limit
 // glim = start + min(max_p eff_p, count), eff_p = final_idx_p - start
 // (count for pixels that never stopped) — the same limit as
 // compact_grad_layout. T is recovered by division (T_k = T_run / (1 -
@@ -120,13 +125,15 @@ __global__ void __launch_bounds__(PIX, 2) raster_bwd_kernel(
     const float* __restrict__ colors, const float* __restrict__ bg,
     const float* __restrict__ final_t, const int* __restrict__ final_idx,
     const float* __restrict__ v_img, const float* __restrict__ v_ft,
-    const int* __restrict__ out_index, int height, int width, int tb_x,
-    float* __restrict__ grads) {
+    const int* __restrict__ out_index, int bg_stride, int n_tiles,
+    int height, int width, int tb_x, float* __restrict__ grads) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem& S = *reinterpret_cast<Smem*>(smem_raw);
   __shared__ int s_eff;
 
-  const int t = blockIdx.x;
+  const int bt = blockIdx.x;  // tile of the views' concatenated grid
+  const int v = bt / n_tiles;
+  const int t = bt - v * n_tiles;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -139,10 +146,10 @@ __global__ void __launch_bounds__(PIX, 2) raster_bwd_kernel(
   const float fpy = static_cast<float>(py);
   const float tcx = static_cast<float>(tx0) + 0.5f * (osk::BLOCK_X - 1);
   const float tcy = static_cast<float>(ty0) + 0.5f * (osk::BLOCK_Y - 1);
-  const int start = tile_start[t];
-  const int count = tile_end[t] - start;
+  const int start = tile_start[bt];
+  const int count = tile_end[bt] - start;
 
-  const int fidx = final_idx[t * PIX + tid];
+  const int fidx = final_idx[static_cast<int64_t>(bt) * PIX + tid];
   const int eff = fidx >= osk::STOP_SENTINEL ? count : fidx - start;
   if (tid == 0) s_eff = 0;
   __syncthreads();
@@ -154,12 +161,14 @@ __global__ void __launch_bounds__(PIX, 2) raster_bwd_kernel(
   // padding pixels carry zero cotangents and so add exactly zero
   float T_run = 1.0f, vr = 0.0f, vg = 0.0f, vb = 0.0f, vob = 0.0f;
   if (inside) {
-    const int p = py * width + px;
+    const int64_t p =
+        static_cast<int64_t>(v) * height * width + py * width + px;
+    const float* bgv = bg + v * bg_stride;
     T_run = final_t[p];
     vr = v_img[3 * p];
     vg = v_img[3 * p + 1];
     vb = v_img[3 * p + 2];
-    const float bg_dot = vr * bg[0] + vg * bg[1] + vb * bg[2];
+    const float bg_dot = vr * bgv[0] + vg * bgv[1] + vb * bgv[2];
     vob = T_run * (v_ft[p] + bg_dot);
   }
   S.vrgb[tid] = make_float4(vr, vg, vb, 0.0f);
@@ -328,29 +337,31 @@ __global__ void __launch_bounds__(PIX, 2) raster_bwd_kernel(
 
 }  // namespace
 
-OSK_API int osk_raster_bwd(int n_tiles, const void* tile_start,
+OSK_API int osk_raster_bwd(int n_views, int n_tiles, const void* tile_start,
                            const void* tile_end, const void* gids,
                            const void* xys, const void* conics,
                            const void* opac, const void* colors,
                            const void* bg, const void* final_t,
                            const void* final_idx, const void* v_img,
                            const void* v_ft, const void* out_index,
-                           int height, int width, int tb_x, void* grads,
-                           void* stream) {
-  if (n_tiles <= 0) return static_cast<int>(cudaGetLastError());
+                           int bg_stride, int height, int width, int tb_x,
+                           void* grads, void* stream) {
+  if (n_views <= 0 || n_tiles <= 0)
+    return static_cast<int>(cudaGetLastError());
   const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t e = cudaFuncSetAttribute(
       raster_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  raster_bwd_kernel<<<n_tiles, PIX, smem, static_cast<cudaStream_t>(stream)>>>(
+  raster_bwd_kernel<<<n_views * n_tiles, PIX, smem,
+                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
       static_cast<const int*>(gids), static_cast<const float*>(xys),
       static_cast<const float*>(conics), static_cast<const float*>(opac),
       static_cast<const float*>(colors), static_cast<const float*>(bg),
       static_cast<const float*>(final_t), static_cast<const int*>(final_idx),
       static_cast<const float*>(v_img), static_cast<const float*>(v_ft),
-      static_cast<const int*>(out_index), height, width, tb_x,
-      static_cast<float*>(grads));
+      static_cast<const int*>(out_index), bg_stride, n_tiles, height, width,
+      tb_x, static_cast<float*>(grads));
   return static_cast<int>(cudaGetLastError());
 }
 

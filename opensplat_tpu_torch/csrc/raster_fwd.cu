@@ -10,6 +10,14 @@
 // never stops). Output: out = rgb + T * background (image layout,
 // cropped), final T, and final_idx for all 256 pixels of each tile,
 // padding pixels included, as the JAX kernel emits them.
+// Views: the grid is V * n_tiles CTAs over V views of one image size
+// (the vmapped batch axis, which Pallas maps onto the TPU kernel's
+// grid). CTA b renders tile b % n_tiles of view v = b / n_tiles: its
+// record range is tile_start/tile_end[b] of the one sorted stream, and
+// it writes view v's image and final-T planes and background bg[v]
+// (bg_stride 3; 0 shares one background). Nothing else depends on v,
+// so each view's output is bit for bit that of a launch on the view
+// alone.
 //
 // Bound on this card: the (pixel, record) arithmetic, about 20 float
 // operations and one expf a pair, not bytes. Two things keep a kernel
@@ -59,19 +67,22 @@ __global__ void __launch_bounds__(PIX) raster_fwd_kernel(
     const int* __restrict__ gids, const float* __restrict__ xys,
     const float* __restrict__ conics, const float* __restrict__ opac,
     const float* __restrict__ colors, const float* __restrict__ bg,
-    int height, int width, int tb_x, float* __restrict__ out_img,
-    float* __restrict__ out_t, int* __restrict__ final_idx) {
+    int bg_stride, int n_tiles, int height, int width, int tb_x,
+    float* __restrict__ out_img, float* __restrict__ out_t,
+    int* __restrict__ final_idx) {
   __shared__ float4 s_rec[NBUF][K][3];
 
-  const int t = blockIdx.x;
+  const int bt = blockIdx.x;  // tile of the views' concatenated grid
+  const int v = bt / n_tiles;
+  const int t = bt - v * n_tiles;
   const int tid = threadIdx.x;
   const int pix = tid;  // pixel in the tile
   const int px = (t % tb_x) * osk::BLOCK_X + pix % osk::BLOCK_X;
   const int py = (t / tb_x) * osk::BLOCK_Y + pix / osk::BLOCK_X;
   const float fpx = static_cast<float>(px);
   const float fpy = static_cast<float>(py);
-  const int start = tile_start[t];
-  const int end = tile_end[t];
+  const int start = tile_start[bt];
+  const int end = tile_end[bt];
   const int nch = (end - start + K - 1) / K;
 
   // thread tid < K gathers record tid of each chunk
@@ -149,32 +160,34 @@ __global__ void __launch_bounds__(PIX) raster_fwd_kernel(
   }
 
   if (px < width && py < height) {
-    const int p = py * width + px;
-    out_img[3 * p] = r + T * bg[0];
-    out_img[3 * p + 1] = g + T * bg[1];
-    out_img[3 * p + 2] = b + T * bg[2];
+    const int64_t p =
+        static_cast<int64_t>(v) * height * width + py * width + px;
+    const float* bgv = bg + v * bg_stride;
+    out_img[3 * p] = r + T * bgv[0];
+    out_img[3 * p + 1] = g + T * bgv[1];
+    out_img[3 * p + 2] = b + T * bgv[2];
     out_t[p] = T;
   }
-  final_idx[t * PIX + pix] = stop;
+  final_idx[static_cast<int64_t>(bt) * PIX + pix] = stop;
 }
 
 }  // namespace
 
-OSK_API int osk_raster_fwd(int n_tiles, const void* tile_start,
+OSK_API int osk_raster_fwd(int n_views, int n_tiles, const void* tile_start,
                            const void* tile_end, const void* gids,
                            const void* xys, const void* conics,
                            const void* opac, const void* colors,
-                           const void* bg, int height, int width, int tb_x,
-                           void* out_img, void* out_t, void* final_idx,
-                           void* stream) {
-  if (n_tiles > 0) {
-    raster_fwd_kernel<<<n_tiles, PIX, 0,
+                           const void* bg, int bg_stride, int height,
+                           int width, int tb_x, void* out_img, void* out_t,
+                           void* final_idx, void* stream) {
+  if (n_views > 0 && n_tiles > 0) {
+    raster_fwd_kernel<<<n_views * n_tiles, PIX, 0,
                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(tile_start), static_cast<const int*>(tile_end),
         static_cast<const int*>(gids), static_cast<const float*>(xys),
         static_cast<const float*>(conics), static_cast<const float*>(opac),
         static_cast<const float*>(colors), static_cast<const float*>(bg),
-        height, width, tb_x, static_cast<float*>(out_img),
+        bg_stride, n_tiles, height, width, tb_x, static_cast<float*>(out_img),
         static_cast<float*>(out_t), static_cast<int*>(final_idx));
   }
   return static_cast<int>(cudaGetLastError());

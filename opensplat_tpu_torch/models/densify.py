@@ -40,10 +40,12 @@ def accumulate_stats(stats: DensifyStats, xys_grad: torch.Tensor,
                      radii: torch.Tensor, height: int,
                      width: int) -> DensifyStats:
     """On the first accumulation after a refine, vis_counts is 1 for ALL
-    Gaussians, visible or not (model.cpp:321-323)."""
+    Gaussians, visible or not (model.cpp:321-323). Stacked states' stats
+    (V, C) with initialized (V,) take (V, C, 2) gradients and (V, C)
+    radii, each scene's row as its own call."""
     visible = radii > 0
     grads = torch.linalg.norm(xys_grad, dim=-1)
-    init = ~stats.initialized
+    init = (~stats.initialized)[..., None]
     new_norm = torch.where(
         init, grads,
         torch.where(visible, stats.xys_grad_norm + grads, stats.xys_grad_norm))

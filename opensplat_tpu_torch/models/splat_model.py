@@ -6,6 +6,12 @@ kernels) or the conformance renderers (dense and tiled), and
 render_depth. The gradient of the loss with respect to the screen-space
 centres (xys.retain_grad() in the reference, model.cpp:171) comes
 through an additive `xys_shift`, as in the JAX package.
+
+A batch of V views of one size (V cameras over one state, or V scenes
+with stacked states: the JAX package's vmapped steps) renders in one
+pass with the fast renderer: one launch of each kernel for every view.
+The single view is that path at V = 1, so a view of a batch and a
+single render run the same operations on the same values.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ DEFAULT_BACKGROUND = (0.6130, 0.0101, 0.3984)
 
 
 class RenderOutputs(NamedTuple):
+    """A batch of V views gives each field a leading V."""
     rgb: torch.Tensor  # (H, W, 3)
     final_t: torch.Tensor  # (H, W)
     radii: torch.Tensor  # (C,) int32
@@ -60,14 +67,23 @@ def _project(params: GaussianParams, alive, viewmat, full_proj, fx, fy, cx,
     )
 
 
+def _views_first(params: GaussianParams, alive, views: Optional[int]):
+    """The parameters and alive mask with a leading state axis: V
+    stacked states stay (V, C, ...), one state becomes (1, C, ...)."""
+    if views is not None and params.means.dim() == 3:
+        return params, alive
+    return GaussianParams(**{k: v[None] for k, v in
+                             params.as_dict().items()}), alive[None]
+
+
 def render_forward(
     params: GaussianParams,
     alive: torch.Tensor,
     cam_to_world: torch.Tensor,
-    fx: float,
-    fy: float,
-    cx: float,
-    cy: float,
+    fx,
+    fy,
+    cx,
+    cy,
     height: int,
     width: int,
     sh_degrees_to_use: int,
@@ -86,10 +102,28 @@ def render_forward(
     clamp (the JAX package's bands shift cy as well); with row_offset
     the call renders rows [row_offset, row_offset + height) of the
     fov_width x fov_height frame (cx, cy the frame's), which equal the
-    frame's own render of those rows (ops/projection.py)."""
+    frame's own render of those rows (ops/projection.py).
+
+    V views: cam_to_world (V, 4, 4), fx, fy, cx, cy V values each, the
+    parameters one state's (C, ...) or V stacked states' (V, C, ...),
+    alive (C,) or (V, C), xys_shift (V, C, 2), background (3,) or
+    (V, 3). "fast" renders them in one pass; "dense" and "tiled" (the
+    conformance paths) render view by view."""
     dev = resolve_device(device)
     if renderer not in ("fast", "dense", "tiled"):
         raise ValueError(f"unknown renderer {renderer!r}")
+    views = cam_to_world.shape[0] if cam_to_world.dim() == 3 else None
+    if views is not None and renderer != "fast":
+        return _render_each(params, alive, cam_to_world, fx, fy, cx, cy,
+                            height, width, sh_degrees_to_use, background,
+                            xys_shift, renderer, dev, fov_width, fov_height,
+                            row_offset)
+    if views is None:
+        cam_to_world, fx, fy, cx, cy = (cam_to_world[None], [fx], [fy],
+                                        [cx], [cy])
+        if xys_shift is not None:
+            xys_shift = xys_shift[None]
+    params, alive = _views_first(params, alive, views)
     frame = (width, height) if row_offset is None else (
         fov_width or width, fov_height)
     viewmat, full_proj, cam_pos = camera_matrices(
@@ -100,34 +134,38 @@ def render_forward(
     xys = proj.xys if xys_shift is None else proj.xys + xys_shift
 
     # SH view directions from detached means (model.cpp:176-177)
-    viewdirs = params.means.detach() - cam_pos
+    viewdirs = params.means.detach() - cam_pos[:, None, :]
     viewdirs = viewdirs / torch.clamp(
         torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
-    coeffs = torch.cat([params.features_dc[:, None, :], params.features_rest],
-                       dim=1)
+    coeffs = torch.cat([params.features_dc[..., None, :],
+                        params.features_rest], dim=-2)
     rgbs = torch.clamp(
         spherical_harmonics(sh_degrees_to_use, viewdirs, coeffs) + 0.5,
         min=0.0)  # model.cpp:192
 
     background = background.to(dev)
-    zero = torch.zeros((), dtype=torch.int64, device=dev)
-    n_cands = n_isects = n_grads = zero
-    if renderer == "dense":
-        rgb, final_t = rasterize(xys, proj.conics, rgbs, opac, proj.depths,
-                                 proj.mask, background, height, width)
-    elif renderer == "tiled":
-        n_cands = n_isects = count_isects(proj)
-        rgb, final_t = rasterize_tiled(
-            xys, proj.conics, rgbs, opac, proj.depths, proj.radii,
-            proj.num_tiles_hit, proj.tile_min, proj.tile_max, background,
-            height, width)
-    else:
+    if renderer == "fast":
         n_cands = count_isects(proj)
         rgb, final_t, n_isects, n_grads = rasterize_fast(
             xys, proj.conics, rgbs, opac, proj.depths, proj.radii,
             proj.num_tiles_hit, proj.tile_min, proj.tile_max, background,
             height, width, return_isects=True, device=dev)
-    return RenderOutputs(
+    else:  # one view (a batch renders view by view, _render_each)
+        proj = ProjectedGaussians(*(t[0] for t in proj))
+        xys, rgbs, opac = xys[0], rgbs[0], opac[0]
+        zero = torch.zeros((), dtype=torch.int64, device=dev)
+        n_cands = n_isects = n_grads = zero
+        if renderer == "dense":
+            rgb, final_t = rasterize(xys, proj.conics, rgbs, opac,
+                                     proj.depths, proj.mask, background,
+                                     height, width)
+        else:
+            n_cands = n_isects = count_isects(proj)
+            rgb, final_t = rasterize_tiled(
+                xys, proj.conics, rgbs, opac, proj.depths, proj.radii,
+                proj.num_tiles_hit, proj.tile_min, proj.tile_max,
+                background, height, width)
+    out = RenderOutputs(
         rgb=torch.clamp(rgb, max=1.0),  # model.cpp:222
         final_t=final_t,
         radii=proj.radii,
@@ -138,6 +176,28 @@ def render_forward(
         n_cands=n_cands,
         n_grads=n_grads,
     )
+    if views is None and renderer == "fast":
+        out = RenderOutputs(*(t[0] for t in out))
+    return out
+
+
+def _render_each(params, alive, cam_to_world, fx, fy, cx, cy, height, width,
+                 sh_deg, background, xys_shift, renderer, dev, fov_width,
+                 fov_height, row_offset) -> RenderOutputs:
+    """V views rendered one at a time (the conformance renderers), the
+    outputs stacked."""
+    stacked = params.means.dim() == 3
+    outs = []
+    for v in range(cam_to_world.shape[0]):
+        p = GaussianParams(**{k: t[v] for k, t in params.as_dict().items()}
+                           ) if stacked else params
+        outs.append(render_forward(
+            p, alive[v] if alive.dim() == 2 else alive, cam_to_world[v],
+            fx[v], fy[v], cx[v], cy[v], height, width, sh_deg,
+            background[v] if background.dim() == 2 else background,
+            None if xys_shift is None else xys_shift[v], renderer, dev,
+            fov_width, fov_height, row_offset))
+    return RenderOutputs(*(torch.stack(ts) for ts in zip(*outs)))
 
 
 def render_depth(

@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import torch
 
+from .views import aligned
+
 Z_NEAR = 0.001
 Z_FAR = 1000.0
 
@@ -35,7 +37,13 @@ def projection_matrix(z_near: float, z_far: float, fov_x, fov_y,
 def camera_matrices(cam_to_world: torch.Tensor, fx, fy, width: int, height: int):
     """(viewmat, full_projmat, cam_pos) from a 4x4 camera-to-world pose,
     with the gsplat y/z flip. cam_pos is the camera origin before the
-    flip (used for SH view directions, model.cpp:176)."""
+    flip (used for SH view directions, model.cpp:176). V poses (V, 4, 4)
+    with V values each of fx and fy give each stacked (V, ...), each
+    view's the bits of its own call."""
+    if cam_to_world.dim() == 3:
+        return tuple(torch.stack(m) for m in zip(*(
+            camera_matrices(aligned(c), x, y, width, height)
+            for c, x, y in zip(cam_to_world, fx, fy))))
     c2w = cam_to_world.to(torch.float32)
     dev = c2w.device
     R = c2w[:3, :3]

@@ -110,14 +110,14 @@ def build() -> Path:
 
 _SIGNATURES = {
     "osk_error_string": ([ctypes.c_int], ctypes.c_char_p),
-    "osk_expand": ([ctypes.c_int] + [ctypes.c_void_p] * 8
+    "osk_expand": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
                    ctypes.c_int),
-    "osk_raster_fwd": ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4,
+    "osk_raster_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4,
                        ctypes.c_int),
-    "osk_raster_bwd": ([ctypes.c_int] + [ctypes.c_void_p] * 13
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+    "osk_raster_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 13
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
                        ctypes.c_int),
     "osk_raster_bwd_info": ([ctypes.c_void_p], ctypes.c_int),
     "osk_raster_fwd_info": ([ctypes.c_void_p], ctypes.c_int),

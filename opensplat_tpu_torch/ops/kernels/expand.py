@@ -12,9 +12,16 @@ takes it only for CPU tensors. With s_max None both keep every row: the
 reference's unculled tile-bbox intersections (the JAX package's
 pallas_expand_bin(..., cull=False)).
 
+The C Gaussians may be V views' projections concatenated view-major,
+`per_view` a view (default: one view of C): Gaussian g belongs to view
+v = g // per_view, and its tiles are numbered v * n_tiles + tile, so
+one launch and one sort serve every view (the vmapped batch axis that
+Pallas maps onto the TPU kernel's grid).
+
 Outputs, for a stream of `total` candidate rows ordered Gaussian-major:
-  keys (total,) int64  (tile << 32) | depth_bits, or the sentinel
-                       (n_tiles << 32) | INT32_MAX for culled rows
+  keys (total,) int64  ((v * n_tiles + tile) << 32) | depth_bits, or the
+                       sentinel ((V * n_tiles) << 32) | INT32_MAX for
+                       culled rows
   gids (total,) int32  Gaussian id, or C for culled rows
   kept (C,) int32      rows kept per Gaussian
 """
@@ -67,8 +74,9 @@ def min_sigma_over_tile(mx, my, A, B, C, tx, ty, pos_slack: float = 0.13):
 
 
 def expand_plain(cnt, starts, total: int, tile_min, tile_max, depths, xys,
-                 conics, s_max, tb_x: int, n_tiles: int):
+                 conics, s_max, tb_x: int, n_tiles: int, per_view=None):
     c = cnt.shape[0]
+    per_view = _views(c, per_view)
     dev = cnt.device
     g = torch.repeat_interleave(torch.arange(c, device=dev), cnt.long(),
                                 output_size=total)
@@ -92,8 +100,9 @@ def expand_plain(cnt, starts, total: int, tile_min, tile_max, depths, xys,
         keep = saturated | ((_bf16(s_max)[g] - ms) >= -0.05)
 
     depth_bits = depths.contiguous().view(torch.int32).long() & 0xFFFFFFFF
-    sentinel = (n_tiles << 32) | INT32_MAX
-    keys = torch.where(keep, ((ty * tb_x + tx) << 32) | depth_bits[g],
+    sentinel = ((c // per_view * n_tiles) << 32) | INT32_MAX
+    tile = (g // per_view) * n_tiles + ty * tb_x + tx
+    keys = torch.where(keep, (tile << 32) | depth_bits[g],
                        torch.full_like(tx, sentinel))
     gids = torch.where(keep, g, torch.full_like(g, c)).to(torch.int32)
     kc = torch.cat([torch.zeros(1, dtype=torch.long, device=dev),
@@ -102,16 +111,27 @@ def expand_plain(cnt, starts, total: int, tile_min, tile_max, depths, xys,
     return keys, gids, kept
 
 
+def _views(c: int, per_view) -> int:
+    """Gaussians a view: C (one view) by default; C must be whole views."""
+    if per_view is None:
+        return max(c, 1)
+    if per_view < 1 or c % per_view:
+        raise ValueError(f"expand: {c} Gaussians are not whole views of "
+                         f"{per_view}")
+    return int(per_view)
+
+
 def expand(cnt, starts, total: int, tile_min, tile_max, depths, xys, conics,
-           s_max, tb_x: int, n_tiles: int):
+           s_max, tb_x: int, n_tiles: int, per_view=None):
     """cnt (C,) int32 tile-bbox areas; starts (C,) int64 exclusive cumsum
     of cnt; total = sum(cnt); tile_min/max (C, 2) int32; depths (C,),
     xys (C, 2), conics (C, 3), s_max (C,) float32, or None to keep
-    every row (no cull)."""
+    every row (no cull); per_view: Gaussians a view (C by default)."""
     if not cnt.is_cuda:
         return expand_plain(cnt, starts, total, tile_min, tile_max, depths,
-                            xys, conics, s_max, tb_x, n_tiles)
+                            xys, conics, s_max, tb_x, n_tiles, per_view)
     c = cnt.shape[0]
+    per_view = _views(c, per_view)
     _lib.check(cnt, "cnt", torch.int32, (c,))
     _lib.check(starts, "starts", torch.int64, (c,))
     _lib.check(tile_min, "tile_min", torch.int32, (c, 2))
@@ -126,8 +146,8 @@ def expand(cnt, starts, total: int, tile_min, tile_max, depths, xys, conics,
     kept = torch.empty((c,), dtype=torch.int32, device=cnt.device)
     p = _lib.ptr
     with _lib.timed("expand"):
-        _lib.launch("osk_expand", c, p(cnt), p(starts), p(tile_min),
-                    p(tile_max), p(depths), p(xys), p(conics),
+        _lib.launch("osk_expand", c, per_view, p(cnt), p(starts),
+                    p(tile_min), p(tile_max), p(depths), p(xys), p(conics),
                     None if s_max is None else p(s_max), tb_x, n_tiles,
                     int(s_max is not None), p(keys), p(gids), p(kept))
     expand.launches += 1

@@ -28,6 +28,14 @@ clamp, zeroes nonfinite per-record sums, and writes one (9,) row per
 record — v_x, v_y, v_A, v_B, v_C, v_opacity, v_r, v_g, v_b — at the row
 `out_index` gives it: the record's candidate row, so that each
 Gaussian's rows lie contiguous for the segment sum.
+
+Views: with `views=V` the tile ranges are V views' grids of one image
+size concatenated (view v's tile t at v * n_tiles + t, as
+ops/binning.py sorts them), the images and cotangents gain a leading V,
+and the background is (3,) or one per view (V, 3). One launch serves
+every view (the vmapped batch axis that Pallas maps onto the TPU
+kernels' grid), and each view's outputs are those of a launch on the
+view alone.
 """
 from __future__ import annotations
 
@@ -44,25 +52,50 @@ K = 256  # the JAX kernels' record chunk: n_grads counts K-wide chunks
 STOP_SENTINEL = 2**30
 
 
+def _grid(height, width, views):
+    """(tb_x, tb_y, tiles a view, views: 1 when `views` is None)."""
+    tb_x, tb_y = num_tiles(height, width)
+    return tb_x, tb_y, tb_x * tb_y, 1 if views is None else int(views)
+
+
+def tiles_to_images(tiled, views, tb_x, tb_y, height, width):
+    """(V * T, 256, ...) -> (V, H, W, ...) crop."""
+    extra = tuple(tiled.shape[2:])
+    img = tiled.reshape((views, tb_y, tb_x, BLOCK_Y, BLOCK_X) + extra)
+    img = img.movedim(3, 2).reshape(
+        (views, tb_y * BLOCK_Y, tb_x * BLOCK_X) + extra)
+    return img[:, :height, :width]
+
+
+def images_to_tiles(img, tb_x, tb_y, height, width):
+    """(V, H, W, ...) -> (V * T, 256, ...) zero-pad."""
+    views, extra = img.shape[0], tuple(img.shape[3:])
+    pad = img.new_zeros((views, tb_y * BLOCK_Y, tb_x * BLOCK_X) + extra)
+    pad[:, :height, :width] = img
+    pad = pad.reshape((views, tb_y, BLOCK_Y, tb_x, BLOCK_X) + extra)
+    return pad.movedim(2, 3).reshape((views * tb_y * tb_x, PIX) + extra)
+
+
+def _view_background(background, n_tiles):
+    """(3,) or (V, 3) -> broadcastable against (V * T, 256, 3)."""
+    if background.dim() == 1:
+        return background[None, None, :]
+    return background.repeat_interleave(n_tiles, 0)[:, None, :]
+
+
 def tiles_to_image(tiled, tb_x, tb_y, height, width):
     """(T, 256, ...) -> (H, W, ...) crop."""
-    extra = tuple(tiled.shape[2:])
-    img = tiled.reshape((tb_y, tb_x, BLOCK_Y, BLOCK_X) + extra)
-    img = img.movedim(2, 1).reshape((tb_y * BLOCK_Y, tb_x * BLOCK_X) + extra)
-    return img[:height, :width]
+    return tiles_to_images(tiled, 1, tb_x, tb_y, height, width)[0]
 
 
 def image_to_tiles(img, tb_x, tb_y, height, width):
     """(H, W, ...) -> (T, 256, ...) zero-pad."""
-    extra = tuple(img.shape[2:])
-    pad = img.new_zeros((tb_y * BLOCK_Y, tb_x * BLOCK_X) + extra)
-    pad[:height, :width] = img
-    pad = pad.reshape((tb_y, BLOCK_Y, tb_x, BLOCK_X) + extra)
-    return pad.movedim(1, 2).reshape((tb_y * tb_x, PIX) + extra)
+    return images_to_tiles(img[None], tb_x, tb_y, height, width)
 
 
-def _pixel_coords(n_tiles, tb_x, device):
-    t = torch.arange(n_tiles, device=device)[:, None]
+def _pixel_coords(n_tiles, tb_x, device, views=1):
+    """(V * T, 256) pixel x and y of every view's tiles."""
+    t = (torch.arange(views * n_tiles, device=device) % n_tiles)[:, None]
     p = torch.arange(PIX, device=device)[None, :]
     px = ((t % tb_x) * BLOCK_X + p % BLOCK_X).to(torch.float32)
     py = ((t // tb_x) * BLOCK_Y + p // BLOCK_X).to(torch.float32)
@@ -85,20 +118,21 @@ def _fields(xys, conics, opac, colors):
 
 
 def rasterize_forward_plain(gauss_ids, tile_start, tile_end, xys, conics,
-                            opac, colors, background, height, width):
+                            opac, colors, background, height, width,
+                            views=None):
     """Record by record over all tiles at once, in the kernel's order and
-    with its arithmetic (each pixel a lane of a (T, 256) tensor)."""
-    tb_x, tb_y = num_tiles(height, width)
-    n_tiles = tb_x * tb_y
+    with its arithmetic (each pixel a lane of a (V * T, 256) tensor)."""
+    tb_x, tb_y, n_tiles, nv = _grid(height, width, views)
+    n_all = nv * n_tiles
     dev = xys.device
-    px, py = _pixel_coords(n_tiles, tb_x, dev)
-    T = torch.ones((n_tiles, PIX), device=dev)
-    rgb = [torch.zeros((n_tiles, PIX), device=dev) for _ in range(3)]
-    fidx = torch.full((n_tiles, PIX), STOP_SENTINEL, dtype=torch.long,
+    px, py = _pixel_coords(n_tiles, tb_x, dev, nv)
+    T = torch.ones((n_all, PIX), device=dev)
+    rgb = [torch.zeros((n_all, PIX), device=dev) for _ in range(3)]
+    fidx = torch.full((n_all, PIX), STOP_SENTINEL, dtype=torch.long,
                       device=dev)
-    done = torch.zeros((n_tiles, PIX), dtype=torch.bool, device=dev)
+    done = torch.zeros((n_all, PIX), dtype=torch.bool, device=dev)
     counts = (tile_end - tile_start).long()
-    longest = int(counts.max()) if n_tiles and gauss_ids.numel() else 0
+    longest = int(counts.max()) if n_all and gauss_ids.numel() else 0
     fields = _fields(xys, conics, opac, colors)
     for k in range(longest):
         if k % 64 == 0 and bool(done.all()):
@@ -118,35 +152,43 @@ def rasterize_forward_plain(gauss_ids, tile_start, tile_end, xys, conics,
         rgb = [torch.where(comp, acc + vis * col, acc)
                for acc, col in zip(rgb, (cr, cg, cb))]
         T = torch.where(comp, next_t, T)
-    out = torch.stack(rgb, -1) + T[..., None] * background[None, None, :]
-    img = tiles_to_image(out, tb_x, tb_y, height, width)
-    final_t = tiles_to_image(T, tb_x, tb_y, height, width)
+    out = torch.stack(rgb, -1) + T[..., None] * _view_background(
+        background, n_tiles)
+    img = tiles_to_images(out, nv, tb_x, tb_y, height, width)
+    final_t = tiles_to_images(T, nv, tb_x, tb_y, height, width)
+    if views is None:
+        img, final_t = img[0], final_t[0]
     return img, final_t, fidx.to(torch.int32)
 
 
 def rasterize_forward(gauss_ids, tile_start, tile_end, xys, conics, opac,
-                      colors, background, height: int, width: int):
-    """Returns (img (H, W, 3), final_t (H, W), final_idx (T, 256) int32)."""
+                      colors, background, height: int, width: int,
+                      views=None):
+    """Returns (img (H, W, 3), final_t (H, W), final_idx (T, 256) int32);
+    with `views=V`: (V, H, W, 3), (V, H, W) and (V * T, 256), from V * T
+    tile ranges and a (3,) or (V, 3) background."""
     if not xys.is_cuda:
         return rasterize_forward_plain(gauss_ids, tile_start, tile_end, xys,
                                        conics, opac, colors, background,
-                                       height, width)
-    tb_x, tb_y = num_tiles(height, width)
-    n_tiles = tb_x * tb_y
+                                       height, width, views)
+    tb_x, _, n_tiles, nv = _grid(height, width, views)
     c = xys.shape[0]
     _check_common(gauss_ids, tile_start, tile_end, xys, conics, opac, colors,
-                  background, n_tiles, c)
+                  background, nv, n_tiles, c)
     dev = xys.device
-    img = torch.empty((height, width, 3), dtype=torch.float32, device=dev)
-    final_t = torch.empty((height, width), dtype=torch.float32, device=dev)
-    fidx = torch.empty((n_tiles, PIX), dtype=torch.int32, device=dev)
+    img = torch.empty((nv, height, width, 3), dtype=torch.float32, device=dev)
+    final_t = torch.empty((nv, height, width), dtype=torch.float32,
+                          device=dev)
+    fidx = torch.empty((nv * n_tiles, PIX), dtype=torch.int32, device=dev)
     p = _lib.ptr
     with _lib.timed("raster_fwd"):
-        _lib.launch("osk_raster_fwd", n_tiles, p(tile_start), p(tile_end),
-                    p(gauss_ids), p(xys), p(conics), p(opac), p(colors),
-                    p(background), height, width, tb_x, p(img), p(final_t),
-                    p(fidx))
+        _lib.launch("osk_raster_fwd", nv, n_tiles, p(tile_start),
+                    p(tile_end), p(gauss_ids), p(xys), p(conics), p(opac),
+                    p(colors), p(background), _bg_stride(background),
+                    height, width, tb_x, p(img), p(final_t), p(fidx))
     rasterize_forward.launches += 1
+    if views is None:
+        return img[0], final_t[0], fidx
     return img, final_t, fidx
 
 
@@ -176,19 +218,25 @@ def pairs_replayed(tile_start, tile_end, final_idx) -> int:
     return int(_pixel_replay(tile_start, tile_end, final_idx).sum())
 
 
-def compact_grad_layout(tile_start, tile_end, final_idx):
-    """(comp_start (T,) int32, n_grads () int64): the JAX backward's
-    compact gradient-stream layout (raster.py::compact_grad_layout) with
-    K = 256 — each tile emits cdiv(glim - floor_K(start), K) K-wide
-    chunks, glim being its replay limit. The port writes records at their
-    stream index instead; n_grads is reported with the JAX meaning."""
+def compact_grad_layout(tile_start, tile_end, final_idx, views=None):
+    """(comp_start (V * T,) int32, n_grads): the JAX backward's compact
+    gradient-stream layout (raster.py::compact_grad_layout) with K = 256
+    — each tile emits cdiv(glim - floor_K(start), K) K-wide chunks, glim
+    being its replay limit. The port writes records at their stream
+    index instead; n_grads is reported with the JAX meaning, () int64,
+    or (V,) per view with `views=V`, each view's as if its stream began
+    at 0 (its own call's)."""
     start = tile_start.long()
+    if views is not None:  # view-local stream positions
+        first = start.reshape(views, -1)[:, :1]
+        start = (start.reshape(views, -1) - first).reshape(-1)
     glim = start + _pixel_replay(tile_start, tile_end, final_idx).amax(1)
     base0 = start - start % K
     nch = torch.where(glim > base0, (glim - base0 + K - 1) // K, 0)
     sizes = nch * K
     ccum = torch.cumsum(sizes, 0)
-    return (ccum - sizes).to(torch.int32), ccum[-1]
+    n_grads = ccum[-1] if views is None else sizes.reshape(views, -1).sum(1)
+    return (ccum - sizes).to(torch.int32), n_grads
 
 
 def _moment_features(device):
@@ -202,8 +250,8 @@ def _moment_features(device):
                         qx * qy], 1)
 
 
-def _tile_centres(n_tiles, tb_x, device):
-    t = torch.arange(n_tiles, device=device)
+def _tile_centres(n_tiles, tb_x, device, views=1):
+    t = torch.arange(views * n_tiles, device=device) % n_tiles
     tcx = ((t % tb_x) * BLOCK_X).to(torch.float32) + 0.5 * (BLOCK_X - 1)
     tcy = ((t // tb_x) * BLOCK_Y).to(torch.float32) + 0.5 * (BLOCK_Y - 1)
     return tcx[:, None], tcy[:, None]  # (T, 1)
@@ -232,33 +280,54 @@ def moment_terms(m, x, y, A, B, C, op, tcx, tcy):
     return torch.where(torch.isfinite(terms), terms, 0.0)
 
 
+def _replay_setup(background, final_t, final_idx, v_img, v_ft, height,
+                  width, views, dtype=torch.float32):
+    """What both plain backwards start from, per (tile, pixel) of the V
+    views' concatenated grids: pixel coordinates, the inside mask, the
+    cotangents, the final T, final_idx and the background term."""
+    tb_x, tb_y, n_tiles, nv = _grid(height, width, views)
+    dev = final_t.device
+
+    def tiles(a):
+        a = a.to(dtype)
+        return images_to_tiles(a if views else a[None], tb_x, tb_y, height,
+                               width)
+
+    px, py = _pixel_coords(n_tiles, tb_x, dev, nv)
+    v_out, v_oa, T_run = tiles(v_img), tiles(v_ft), tiles(final_t)
+    bg = _view_background(background, n_tiles)
+    vr, vg, vb = (v_out[..., j] for j in range(3))
+    vob = T_run * (v_oa + (vr * bg[..., 0] + vg * bg[..., 1]
+                           + vb * bg[..., 2]))
+    fidx = final_idx.reshape(nv * n_tiles, PIX).long()
+    return (px, py, (px < width) & (py < height), v_out, T_run, vob, fidx,
+            n_tiles, nv)
+
+
 def rasterize_backward_plain(gauss_ids, tile_start, tile_end, xys, conics,
                              opac, colors, background, final_t, final_idx,
-                             v_img, v_ft, out_index, height, width):
+                             v_img, v_ft, out_index, height, width,
+                             views=None):
     """Back to front, record by record over all tiles at once, with the
     kernel's running T and colour sums and its moment reduction; only the
     sums over a tile's 256 pixels are taken in another order (and the
-    kernel's 1 / (1 - alpha) is within an ulp of this division)."""
-    tb_x, tb_y = num_tiles(height, width)
-    n_tiles = tb_x * tb_y
+    kernel's 1 / (1 - alpha) is within an ulp of this division). Each
+    tile's sums are its own reductions, so a view's rows do not depend
+    on the other views."""
+    tb_x = num_tiles(height, width)[0]
     dev = xys.device
     n = gauss_ids.shape[0]
     grads = torch.zeros((n, 9), dtype=torch.float32, device=dev)
-    px, py = _pixel_coords(n_tiles, tb_x, dev)
-    tcx, tcy = _tile_centres(n_tiles, tb_x, dev)
-    feats = _moment_features(dev)
-    inside = (px < width) & (py < height)
-    v_out = image_to_tiles(v_img.to(torch.float32), tb_x, tb_y, height, width)
-    v_oa = image_to_tiles(v_ft.to(torch.float32), tb_x, tb_y, height, width)
-    T_run = image_to_tiles(final_t.to(torch.float32), tb_x, tb_y, height,
-                           width)
+    (px, py, inside, v_out, T_run, vob, fidx, n_tiles,
+     nv) = _replay_setup(background, final_t, final_idx, v_img, v_ft,
+                         height, width, views)
+    tcx, tcy = _tile_centres(n_tiles, tb_x, dev, nv)
+    feats = _moment_features(dev).T[None]  # (1, 6, 256)
+    v_cols = v_out.permute(0, 2, 1)  # (V * T, 3, 256)
     vr, vg, vb = (v_out[..., j] for j in range(3))
-    bg_dot = vr * background[0] + vg * background[1] + vb * background[2]
-    vob = T_run * (v_oa + bg_dot)
-    fidx = final_idx.reshape(n_tiles, PIX).long()
     buf_dot = torch.zeros_like(T_run)
     counts = (tile_end - tile_start).long()
-    longest = int(counts.max()) if n_tiles and n else 0
+    longest = int(counts.max()) if counts.numel() and n else 0
     fields = _fields(xys, conics, opac, colors)
     for k in reversed(range(longest)):
         idx, valid, (x, y, A, B, C, op, cr, cg, cb) = _records(
@@ -277,8 +346,8 @@ def rasterize_backward_plain(gauss_ids, tile_start, tile_end, xys, conics,
         w = cr * vr + cg * vg + cb * vb
         v_alpha = T_k * w - ra * (buf_dot + vob)
         v_sigma = torch.where(comp, -op * vis * v_alpha, 0.0)
-        m = torch.cat([v_sigma @ feats,
-                       torch.einsum("tp,tpc->tc", fac, v_out)], 1)  # (T, 9)
+        m = torch.cat([(v_sigma[:, None, :] * feats).sum(-1),
+                       (fac[:, None, :] * v_cols).sum(-1)], 1)  # (V * T, 9)
         terms = moment_terms(m, x[:, 0], y[:, 0], A[:, 0], B[:, 0], C[:, 0],
                              op[:, 0], tcx[:, 0], tcy[:, 0])
         grads[out_index[idx[valid]].long()] = terms[valid]
@@ -289,29 +358,24 @@ def rasterize_backward_plain(gauss_ids, tile_start, tile_end, xys, conics,
 
 def rasterize_backward_direct(gauss_ids, tile_start, tile_end, xys, conics,
                               opac, colors, background, final_t, final_idx,
-                              v_img, v_ft, out_index, height, width):
+                              v_img, v_ft, out_index, height, width,
+                              views=None):
     """The nine gradient sums taken term by term, the reference that the
     moment form (`moment_terms`, the kernel's and the plain version's
     algebra) is held to. Per-pixel values, and so every composite
     decision, in float32 as the kernel computes them; the nine terms and
     their sums over the pixels in float64. Rows at `out_index`, as
     rasterize_backward writes them; (I, 9) float64."""
-    tb_x, tb_y = num_tiles(height, width)
-    n_tiles = tb_x * tb_y
     dev = xys.device
     n = gauss_ids.shape[0]
     grads = torch.zeros((n, 9), dtype=torch.float64, device=dev)
-    px, py = _pixel_coords(n_tiles, tb_x, dev)
-    inside = (px < width) & (py < height)
-    tiles = lambda a: image_to_tiles(a, tb_x, tb_y, height, width)
-    v_out, v_oa, T_run = tiles(v_img), tiles(v_ft), tiles(final_t)
+    (px, py, inside, v_out, T_run, vob, fidx, _,
+     _) = _replay_setup(background, final_t, final_idx, v_img, v_ft,
+                        height, width, views)
     vr, vg, vb = (v_out[..., j] for j in range(3))
-    vob = T_run * (v_oa + vr * background[0] + vg * background[1]
-                   + vb * background[2])
-    fidx = final_idx.reshape(n_tiles, PIX).long()
     buf_dot = torch.zeros_like(T_run)
     counts = (tile_end - tile_start).long()
-    longest = int(counts.max()) if n_tiles and n else 0
+    longest = int(counts.max()) if counts.numel() and n else 0
     fields = _fields(xys, conics, opac, colors)
     d = lambda a: a.double()
     for k in reversed(range(longest)):
@@ -346,33 +410,36 @@ def rasterize_backward_direct(gauss_ids, tile_start, tile_end, xys, conics,
 
 def rasterize_backward(gauss_ids, tile_start, tile_end, xys, conics, opac,
                        colors, background, final_t, final_idx, v_img, v_ft,
-                       out_index, height: int, width: int):
+                       out_index, height: int, width: int, views=None):
     """Per-record gradients (I, 9) f32: stream record i's row is written
     at row out_index[i] (a permutation of [0, I)); rows of records past a
-    tile's replay limit, and of culled candidates, stay 0."""
+    tile's replay limit, and of culled candidates, stay 0. With
+    `views=V`, final_t, v_img and v_ft have a leading V, as
+    rasterize_forward returns them."""
     if not xys.is_cuda:
         return rasterize_backward_plain(gauss_ids, tile_start, tile_end, xys,
                                         conics, opac, colors, background,
                                         final_t, final_idx, v_img, v_ft,
-                                        out_index, height, width)
-    tb_x, tb_y = num_tiles(height, width)
-    n_tiles = tb_x * tb_y
+                                        out_index, height, width, views)
+    tb_x, _, n_tiles, nv = _grid(height, width, views)
     c = xys.shape[0]
     _check_common(gauss_ids, tile_start, tile_end, xys, conics, opac, colors,
-                  background, n_tiles, c)
-    _lib.check(final_t, "final_t", torch.float32, (height, width))
-    _lib.check(final_idx, "final_idx", torch.int32, (n_tiles, PIX))
-    _lib.check(v_img, "v_img", torch.float32, (height, width, 3))
-    _lib.check(v_ft, "v_ft", torch.float32, (height, width))
+                  background, nv, n_tiles, c)
+    lead = () if views is None else (nv,)
+    _lib.check(final_t, "final_t", torch.float32, lead + (height, width))
+    _lib.check(final_idx, "final_idx", torch.int32, (nv * n_tiles, PIX))
+    _lib.check(v_img, "v_img", torch.float32, lead + (height, width, 3))
+    _lib.check(v_ft, "v_ft", torch.float32, lead + (height, width))
     _lib.check(out_index, "out_index", torch.int32, (gauss_ids.shape[0],))
     grads = torch.zeros((gauss_ids.shape[0], 9), dtype=torch.float32,
                         device=xys.device)
     p = _lib.ptr
     with _lib.timed("raster_bwd"):
-        _lib.launch("osk_raster_bwd", n_tiles, p(tile_start), p(tile_end),
-                    p(gauss_ids), p(xys), p(conics), p(opac), p(colors),
-                    p(background), p(final_t), p(final_idx), p(v_img),
-                    p(v_ft), p(out_index), height, width, tb_x, p(grads))
+        _lib.launch("osk_raster_bwd", nv, n_tiles, p(tile_start),
+                    p(tile_end), p(gauss_ids), p(xys), p(conics), p(opac),
+                    p(colors), p(background), p(final_t), p(final_idx),
+                    p(v_img), p(v_ft), p(out_index), _bg_stride(background),
+                    height, width, tb_x, p(grads))
     rasterize_backward.launches += 1
     return grads
 
@@ -396,13 +463,19 @@ def backward_kernel_info() -> dict:
         "K", "registers", "shared_bytes", "ctas_per_sm"))
 
 
+def _bg_stride(background) -> int:
+    """Floats between two views' backgrounds: 0 for one shared (3,)."""
+    return 0 if background.dim() == 1 else 3
+
+
 def _check_common(gauss_ids, tile_start, tile_end, xys, conics, opac, colors,
-                  background, n_tiles, c):
+                  background, views, n_tiles, c):
     _lib.check(gauss_ids, "gauss_ids", torch.int32, (-1,))
-    _lib.check(tile_start, "tile_start", torch.int32, (n_tiles,))
-    _lib.check(tile_end, "tile_end", torch.int32, (n_tiles,))
+    _lib.check(tile_start, "tile_start", torch.int32, (views * n_tiles,))
+    _lib.check(tile_end, "tile_end", torch.int32, (views * n_tiles,))
     _lib.check(xys, "xys", torch.float32, (c, 2))
     _lib.check(conics, "conics", torch.float32, (c, 3))
     _lib.check(opac, "opac", torch.float32, (c,))
     _lib.check(colors, "colors", torch.float32, (c, 3))
-    _lib.check(background, "background", torch.float32, (3,))
+    _lib.check(background, "background", torch.float32,
+               (3,) if background.dim() == 1 else (views, 3))

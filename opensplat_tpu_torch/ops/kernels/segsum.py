@@ -4,8 +4,10 @@ Replaces opensplat_tpu/ops/pallas/segsum.py::_segsum_kernel
 (pallas_segment_sum). CUDA source: csrc/segsum.cu — a warp per 32
 Gaussians sums each one's contiguous segment of rows in a fixed order;
 bound by bytes (see the source note there). `segment_sum_plain` is the
-same function in plain PyTorch (float64 prefix sums); the wrapper takes
-it only for CPU tensors.
+same function in plain PyTorch (each segment summed on its own in
+float64, so a segment's sum does not depend on the rows before it: a
+batch of views gives each view the sums of its own call); the wrapper
+takes it only for CPU tensors.
 
 The rows come in Gaussian order: the backward writes each record's row
 at its candidate row (`BinnedGaussians.cand_index`), and Gaussian g's
@@ -20,11 +22,14 @@ from . import _lib
 
 
 def segment_sum_plain(rows, cand_start, cand_count):
-    cols = rows.double().T  # (9, I): scan along rows
-    cs = torch.cat([cols.new_zeros((rows.shape[1], 1)), cols.cumsum(1)], 1)
-    start = cand_start.long()
-    end = start + cand_count.long()
-    return (cs[:, end] - cs[:, start]).T.to(torch.float32)
+    count = cand_count.long()
+    seg = torch.repeat_interleave(torch.arange(count.shape[0],
+                                               device=rows.device), count)
+    first = torch.repeat_interleave(cand_start.long() - count.cumsum(0)
+                                    + count, count)
+    at = first + torch.arange(seg.shape[0], device=rows.device)
+    out = rows.new_zeros((count.shape[0], rows.shape[1]), dtype=torch.float64)
+    return out.index_add_(0, seg, rows[at].double()).to(torch.float32)
 
 
 def segment_sum(rows, cand_start, cand_count):

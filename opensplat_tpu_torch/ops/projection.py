@@ -17,6 +17,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .tensor_math import quat_to_rotmat
+from .views import per_view
 
 BLOCK_X = 16  # tile geometry, shared with the rasterizer
 BLOCK_Y = 16
@@ -67,42 +68,80 @@ def project_gaussians(
     frame that projmat, cx and cy describe (parallel/gaussian_shard.py):
     the centres are the frame's minus row_offset, an exact subtraction
     for a multiple of 16, so a band renders its rows of the frame to the
-    bit; the tile grid is the band's."""
-    means = means.to(torch.float32)
+    bit; the tile grid is the band's.
 
-    R_vm = viewmat[:3, :3]
-    t_vm = viewmat[:3, 3]
-    p_view = means @ R_vm.T + t_vm
-    z = p_view[:, 2]
+    Views: viewmat and projmat (V, 4, 4) with V values each of fx, fy,
+    cx and cy project V views at once; the Gaussians' tensors are one
+    state's (N, ...) or V states' (V, N, ...), valid_mask and opacities
+    likewise, and every output gains the leading V. The two products
+    with the view's matrices run once a view (views.per_view) and
+    everything else is elementwise, so each view's outputs are the bits
+    of its own call; the single view is this path at V = 1."""
+    batched = viewmat.dim() == 3
+    if not batched:
+        means, scales, quats = means[None], scales[None], quats[None]
+        viewmat, projmat = viewmat[None], projmat[None]
+        fx, fy, cx, cy = [fx], [fy], [cx], [cy]
+        if valid_mask is not None:
+            valid_mask = valid_mask[None]
+        if opacities is not None:
+            opacities = opacities[None]
+    out = _project_views(means.to(torch.float32), scales, glob_scale, quats,
+                         viewmat, projmat, fx, fy, cx, cy, img_height,
+                         img_width, clip_thresh, valid_mask, opacities,
+                         alpha_thresh, fov_width, fov_height, row_offset)
+    return out if batched else ProjectedGaussians(*(t[0] for t in out))
 
-    tan_fovx = 0.5 * (fov_width if fov_width is not None else img_width) / fx
-    tan_fovy = 0.5 * (fov_height if fov_height is not None
-                      else img_height) / fy
-    lim_x = 1.3 * tan_fovx
-    lim_y = 1.3 * tan_fovy
+
+def _view_col(vals, device) -> torch.Tensor:
+    """V per-view scalars as a float32 (V, 1) column, each rounded as a
+    Python scalar operand is."""
+    return torch.tensor([float(v) for v in vals], dtype=torch.float32,
+                        device=device)[:, None]
+
+
+def _project_views(means, scales, glob_scale, quats, viewmat, projmat, fx,
+                   fy, cx, cy, img_height, img_width, clip_thresh,
+                   valid_mask, opacities, alpha_thresh, fov_width,
+                   fov_height, row_offset) -> ProjectedGaussians:
+    dev = means.device
+    views = viewmat.shape[0]
+    col = lambda vals: _view_col(vals, dev)
+    R_vm = viewmat[:, :3, :3]
+    p_view = per_view(lambda m, vm: m @ vm[:3, :3].T + vm[:3, 3], views,
+                      means, viewmat)  # (V, N, 3)
+    z = p_view[..., 2]
+
+    fov_w = fov_width if fov_width is not None else img_width
+    fov_h = fov_height if fov_height is not None else img_height
+    lim_x = col(1.3 * (0.5 * fov_w / f) for f in fx)
+    lim_y = col(1.3 * (0.5 * fov_h / f) for f in fy)
     z_safe = torch.where(z.abs() < 1e-8, torch.full_like(z, 1e-8), z)
-    tx = z * torch.clamp(p_view[:, 0] / z_safe, -lim_x, lim_x)
-    ty = z * torch.clamp(p_view[:, 1] / z_safe, -lim_y, lim_y)
+    tx = z * torch.clamp(p_view[..., 0] / z_safe, -lim_x, lim_x)
+    ty = z * torch.clamp(p_view[..., 1] / z_safe, -lim_y, lim_y)
     rz = 1.0 / z_safe
     rz2 = rz * rz
 
-    j00 = fx * rz
-    j02 = -fx * tx * rz2
-    j11 = fy * rz
-    j12 = -fy * ty * rz2
-    t_row0 = [j00 * R_vm[0, k] + j02 * R_vm[2, k] for k in range(3)]
-    t_row1 = [j11 * R_vm[1, k] + j12 * R_vm[2, k] for k in range(3)]
+    fx_c, fy_c = col(fx), col(fy)
+    j00 = fx_c * rz
+    j02 = -fx_c * tx * rz2
+    j11 = fy_c * rz
+    j12 = -fy_c * ty * rz2
+    t_row0 = [j00 * R_vm[:, 0, k, None] + j02 * R_vm[:, 2, k, None]
+              for k in range(3)]
+    t_row1 = [j11 * R_vm[:, 1, k, None] + j12 * R_vm[:, 2, k, None]
+              for k in range(3)]
 
     R = quat_to_rotmat(quats)
-    s_cols = [glob_scale * scales[:, j] for j in range(3)]
+    s_cols = [glob_scale * scales[..., j] for j in range(3)]
     v0 = [
-        (t_row0[0] * R[:, 0, j] + t_row0[1] * R[:, 1, j] + t_row0[2] * R[:, 2, j])
-        * s_cols[j]
+        (t_row0[0] * R[..., 0, j] + t_row0[1] * R[..., 1, j]
+         + t_row0[2] * R[..., 2, j]) * s_cols[j]
         for j in range(3)
     ]
     v1 = [
-        (t_row1[0] * R[:, 0, j] + t_row1[1] * R[:, 1, j] + t_row1[2] * R[:, 2, j])
-        * s_cols[j]
+        (t_row1[0] * R[..., 0, j] + t_row1[1] * R[..., 1, j]
+         + t_row1[2] * R[..., 2, j]) * s_cols[j]
         for j in range(3)
     ]
     a = v0[0] * v0[0] + v0[1] * v0[1] + v0[2] * v0[2] + 0.3
@@ -120,16 +159,17 @@ def project_gaussians(
     v_max = mid + sq
     radius_f = torch.ceil(3.0 * torch.sqrt(v_max))
 
-    p_hom = means @ projmat[:, :3].T + projmat[:, 3]
-    w_hom = p_hom[:, 3]
+    p_hom = per_view(lambda m, pm: m @ pm[:, :3].T + pm[:, 3], views,
+                     means, projmat)
+    w_hom = p_hom[..., 3]
     rw = 1.0 / (w_hom + 1e-6)
-    p_proj = p_hom[:, :3] * rw[:, None]
+    p_proj = p_hom[..., :3] * rw[..., None]
     if row_offset is None:
-        u = 0.5 * img_width * p_proj[:, 0] + cx - 0.5
-        v = 0.5 * img_height * p_proj[:, 1] + cy - 0.5
+        u = 0.5 * img_width * p_proj[..., 0] + col(cx) - 0.5
+        v = 0.5 * img_height * p_proj[..., 1] + col(cy) - 0.5
     else:
-        u = 0.5 * (fov_width or img_width) * p_proj[:, 0] + cx - 0.5
-        v = 0.5 * fov_height * p_proj[:, 1] + cy - 0.5 - row_offset
+        u = 0.5 * (fov_width or img_width) * p_proj[..., 0] + col(cx) - 0.5
+        v = 0.5 * fov_height * p_proj[..., 1] + col(cy) - 0.5 - row_offset
     xys = torch.stack([u, v], dim=-1)
 
     # tile bbox: integer geometry, no gradient
@@ -142,7 +182,8 @@ def project_gaussians(
         if opacities is not None:
             # opacity-aware bbox (binning only; radii keep 3 sigma)
             s_max = torch.log(
-                torch.clamp(opacities.reshape(-1), min=1e-12) / alpha_thresh
+                torch.clamp(opacities.reshape(opacities.shape[0], -1),
+                            min=1e-12) / alpha_thresh
             )
             r_alpha = torch.sqrt(2.0 * torch.clamp(s_max, min=0.0) * v_max) + 1.0
             bbox_radius = torch.where(
@@ -179,7 +220,7 @@ def project_gaussians(
     return ProjectedGaussians(
         xys=xys,
         depths=z,
-        cam_depths=p_proj[:, 2],
+        cam_depths=p_proj[..., 2],
         radii=radii,
         conics=conics,
         cov2d=torch.stack([a, b_off, c], dim=-1),

@@ -2,11 +2,14 @@
 
 Counterpart of opensplat_tpu/ops/sh.py (reference sh.cuh:12-124): a
 (N, B) basis matrix contracted with (N, B, 3) coefficients; gradients
-from autograd.
+from autograd. A batch of views contracts once a view (views.per_view),
+so each view's colours are the bits of its own call.
 """
 from __future__ import annotations
 
 import torch
+
+from .views import per_view
 
 SH_C0 = 0.28209479177387814
 SH_C1 = 0.4886025119029199
@@ -67,12 +70,11 @@ def sh_to_rgb(sh):
 
 def eval_sh_basis(degree: int, degrees_to_use: int,
                   viewdirs: torch.Tensor) -> torch.Tensor:
-    """(N, num_sh_bases(degree)) basis; columns past
-    num_sh_bases(degrees_to_use) are zero."""
-    n = viewdirs.shape[0]
+    """(..., num_sh_bases(degree)) basis of (..., 3) directions; columns
+    past num_sh_bases(degrees_to_use) are zero."""
     n_total = num_sh_bases(degree)
     n_used = num_sh_bases(degrees_to_use)
-    x, y, z = viewdirs[:, 0], viewdirs[:, 1], viewdirs[:, 2]
+    x, y, z = viewdirs[..., 0], viewdirs[..., 1], viewdirs[..., 2]
     cols = [torch.full_like(x, SH_C0)]
     if n_used > 1:
         cols += [SH_C1 * -y, SH_C1 * z, SH_C1 * -x]
@@ -111,15 +113,22 @@ def eval_sh_basis(degree: int, degrees_to_use: int,
     basis = torch.stack(cols, dim=-1)
     if n_used < n_total:
         basis = torch.cat(
-            [basis, basis.new_zeros((n, n_total - n_used))], dim=-1
-        )
+            [basis, basis.new_zeros(basis.shape[:-1] + (n_total - n_used,))],
+            dim=-1)
     return basis
 
 
 def spherical_harmonics(degrees_to_use: int, viewdirs: torch.Tensor,
                         coeffs: torch.Tensor) -> torch.Tensor:
     """(N, 3) colour from (N, 3) unit view directions and (N, B, 3)
-    coefficients; the total degree follows from B."""
+    coefficients; the total degree follows from B. V views: directions
+    (V, N, 3) and one state's (N, B, 3) coefficients or V states' (V, N,
+    B, 3) give (V, N, 3)."""
     degree = deg_from_sh(coeffs.shape[-2])
     basis = eval_sh_basis(degree, degrees_to_use, viewdirs)
-    return torch.einsum("nb,nbc->nc", basis, coeffs)
+    if viewdirs.dim() == 2:
+        return torch.einsum("nb,nbc->nc", basis, coeffs)
+    if coeffs.dim() == 3:
+        coeffs = coeffs[None]
+    return per_view(lambda b, c: torch.einsum("nb,nbc->nc", b, c),
+                    viewdirs.shape[0], basis, coeffs)

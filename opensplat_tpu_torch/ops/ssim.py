@@ -14,6 +14,8 @@ import contextlib
 import numpy as np
 import torch
 
+from .views import per_view
+
 
 def _gauss_1d(window_size: int = 11, sigma: float = 1.5) -> np.ndarray:
     i = np.arange(window_size, dtype=np.float64)
@@ -94,14 +96,21 @@ def l1(rendered: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 
 
 def psnr(rendered: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
-    """Peak signal-to-noise ratio in dB (model.cpp:49-52)."""
+    """Peak signal-to-noise ratio in dB (model.cpp:49-52); (V,) per view
+    for (V, H, W, 3) images."""
+    if rendered.dim() == 4:
+        return per_view(psnr, rendered.shape[0], rendered, gt)
     mse = ((rendered - gt) ** 2).mean()
     return 10.0 * torch.log10(1.0 / mse)
 
 
 def main_loss(rendered: torch.Tensor, gt: torch.Tensor,
               ssim_weight: float) -> torch.Tensor:
-    """(1 - w) * L1 + w * (1 - SSIM) (model.cpp:780-784)."""
+    """(1 - w) * L1 + w * (1 - SSIM) (model.cpp:780-784); (V,) per view
+    for (V, H, W, 3) images, each taken on its view alone."""
+    if rendered.dim() == 4:
+        return per_view(lambda r, g: main_loss(r, g, ssim_weight),
+                        rendered.shape[0], rendered, gt)
     return (1.0 - ssim_weight) * l1(rendered, gt) + ssim_weight * (
         1.0 - ssim(rendered, gt)
     )

@@ -40,7 +40,8 @@ def adam_update(params: Dict[str, torch.Tensor],
                 lrs: Dict[str, float], alive: torch.Tensor) -> None:
     """One masked Adam step, in place: params, opt.mu, opt.nu and
     opt.count change; rows where `alive` is False keep their values and
-    moments."""
+    moments. Stacked states (leaves (V, C, ...), alive (V, C), one shared
+    count) step together, elementwise, each scene as its own call."""
     opt.count += 1
     c = float(opt.count)
     bc1 = 1.0 - BETA1 ** c
@@ -48,7 +49,8 @@ def adam_update(params: Dict[str, torch.Tensor],
     for name, p in params.items():
         g = grads[name]
         m, v = opt.mu[name], opt.nu[name]
-        mask = alive.reshape((-1,) + (1,) * (p.dim() - 1)).to(p.dtype)
+        mask = alive.reshape(alive.shape + (1,) * (p.dim() - alive.dim())
+                             ).to(p.dtype)
         m_new = BETA1 * m + (1.0 - BETA1) * g
         v_new = BETA2 * v + (1.0 - BETA2) * (g * g)
         step = lrs[name] * (m_new / bc1) / (torch.sqrt(v_new / bc2) + EPS)

@@ -2,10 +2,11 @@
 
 Counterpart of opensplat_tpu/parallel/multi_scene.py. Every TrainState
 leaf gains a leading scene axis (one capacity for all scenes). The JAX
-package vmaps one program over the scenes; the port's kernels take one
-camera, so a step is a loop of train_step_impl over the scenes, the
-same kernels in the same order as independent Trainers. With a mesh the
-scenes are dealt over the `data` ranks in contiguous blocks; scenes are
+package vmaps one program over the scenes; the port runs one batched
+step (train_step_impl on the stacked state): one launch of each kernel,
+one sort and one Adam update for all scenes, each scene's loss and
+state the bits of an independent Trainer's step. With a mesh the scenes
+are dealt over the `data` ranks in contiguous blocks; scenes are
 independent, so a step has no collective beyond gathering the metrics.
 """
 from __future__ import annotations
@@ -47,20 +48,14 @@ def multi_scene_train_step(states: TrainState, cam_to_world: torch.Tensor,
                            renderer: str = "fast"):
     """One step of each of S scenes: states stacked (S, ...), one camera
     per scene (cam_to_world (S, 4, 4), intrinsics S floats each,
-    gt_images (S, H, W, 3)). Returns (the new stacked state, metrics
-    stacked per scene: loss, psnr (S,) and the train step's counters).
-    The input's parameters and moments are updated in place, as
-    train_step_impl updates its state."""
-    n = cam_to_world.shape[0]
-    outs, metrics = [], []
-    for i, st in enumerate(unstack_states(states, n)):
-        st, m = train_step_impl(st, cam_to_world[i], fx[i], fy[i], cx[i],
-                                cy[i], gt_images[i], means_lr, height, width,
-                                sh_deg, cfg, accumulate, renderer)
-        outs.append(st)
-        metrics.append(m)
-    return stack_states(outs), {k: torch.stack([m[k] for m in metrics])
-                                for k in metrics[0]}
+    gt_images (S, H, W, 3)). Returns (the stacked state, metrics stacked
+    per scene: loss, psnr (S,) and the train step's counters). The
+    state's parameters, moments and stats are updated in place, as
+    train_step_impl updates its state; the scenes go through one batched
+    step (train_step_impl on the stacked state)."""
+    return train_step_impl(states, cam_to_world, fx, fy, cx, cy, gt_images,
+                           means_lr, height, width, sh_deg, cfg, accumulate,
+                           renderer)
 
 
 def sharded_multi_scene_step(states: TrainState, cam_to_world, fx, fy, cx,

@@ -1,8 +1,9 @@
 """A batch of D cameras in one training step on one device.
 
-Counterpart of opensplat_tpu/parallel/sharded_train.py. The kernels take
-one camera, so the batch is a loop over cameras in one autograd graph
-(the JAX package vmaps it). Semantics, as in the JAX package:
+Counterpart of opensplat_tpu/parallel/sharded_train.py. The D cameras
+render as one batch of views over the shared state (render_forward with
+D cameras, as the JAX package vmaps them): with the fast renderer one
+launch of each kernel serves all D. Semantics, as in the JAX package:
   * the loss is the MEAN over the batch, so a step matches a D-camera
     reference average rather than D sequential steps (standard DP);
   * densify statistics reproduce D sequential reference steps
@@ -71,28 +72,24 @@ def render_batch_grads(state: TrainState, cam_to_world: torch.Tensor,
                               device=dev)
     leaves = {k: v.detach().requires_grad_(True)
               for k, v in state.params.as_dict().items()}
-    params = GaussianParams(**leaves)
     d = len(fx)
     shifts = torch.zeros((d, capacity, 2), dtype=torch.float32, device=dev,
                          requires_grad=True)
+    out = render_forward(
+        GaussianParams(**leaves), state.alive, cam_to_world, fx, fy, cx, cy,
+        height, width, sh_deg, background, xys_shift=shifts,
+        renderer=renderer, device=dev)
     loss = 0.0
-    radii, psnrs, demand = [], [], []
-    for i in range(d):
-        out = render_forward(
-            params, state.alive, cam_to_world[i], fx[i], fy[i], cx[i], cy[i],
-            height, width, sh_deg, background, xys_shift=shifts[i],
-            renderer=renderer, device=dev)
-        loss = loss + main_loss(out.rgb, gt_images[i], cfg.ssim_weight)
-        radii.append(out.radii)
-        with torch.no_grad():
-            psnrs.append(psnr(out.rgb, gt_images[i]))
-            demand.append(torch.stack([t.to(torch.int64) for t in
-                                       (out.n_cands, out.n_isects,
-                                        out.n_grads)]))
+    for view_loss in main_loss(out.rgb, gt_images, cfg.ssim_weight):
+        loss = loss + view_loss
     loss = loss / d_total
     g_params, g_shifts = leaf_grads(loss, leaves, shifts)
-    return (loss.detach(), g_params, g_shifts, torch.stack(radii),
-            torch.stack(psnrs), torch.stack(demand).amax(0))
+    with torch.no_grad():
+        psnrs = psnr(out.rgb, gt_images)
+        demand = torch.stack([t.to(torch.int64) for t in
+                              (out.n_cands, out.n_isects, out.n_grads)], 1)
+    return (loss.detach(), g_params, g_shifts, out.radii, psnrs,
+            demand.amax(0))
 
 
 def batched_train_step(state: TrainState, cam_to_world: torch.Tensor,

@@ -66,10 +66,10 @@ def leaf_grads(loss: torch.Tensor, leaves: dict, shift: torch.Tensor):
 def train_step_impl(
     state: TrainState,
     cam_to_world: torch.Tensor,
-    fx: float,
-    fy: float,
-    cx: float,
-    cy: float,
+    fx,
+    fy,
+    cx,
+    cy,
     gt_image: torch.Tensor,
     means_lr: float,
     height: int,
@@ -81,21 +81,31 @@ def train_step_impl(
 ):
     """One optimisation step. Updates `state` in place (parameters, Adam
     moments and count, stats) and returns (state, metrics); metrics are
-    device tensors, read only when the caller asks."""
+    device tensors, read only when the caller asks.
+
+    V scenes in one step, the counterpart of the JAX package's
+    jax.vmap(train_step_impl): a state stacked along a leading scene
+    axis (parallel/multi_scene.py::stack_states, one shared Adam count),
+    cam_to_world (V, 4, 4), fx, fy, cx, cy V values each, gt_image
+    (V, H, W, 3); metrics per scene, (V,). With the fast renderer every
+    kernel launches once, the stream is sorted and sized once (one host
+    read) and Adam updates once for all scenes; each scene's loss and
+    state are the bits of its own step."""
     dev = state.device
-    capacity = state.alive.shape[0]
+    views = cam_to_world.shape[0] if cam_to_world.dim() == 3 else None
     background = torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32,
                               device=dev)
     leaves = {k: v.detach().requires_grad_(True)
               for k, v in state.params.as_dict().items()}
-    xys_shift = torch.zeros((capacity, 2), dtype=torch.float32, device=dev,
-                            requires_grad=True)
+    xys_shift = torch.zeros(state.alive.shape + (2,), dtype=torch.float32,
+                            device=dev, requires_grad=True)
     out = render_forward(
         GaussianParams(**leaves), state.alive, cam_to_world, fx, fy, cx, cy,
         height, width, sh_deg, background, xys_shift=xys_shift,
         renderer=renderer, device=dev)
     loss = main_loss(out.rgb, gt_image, cfg.ssim_weight)
-    g_params, g_xys = leaf_grads(loss, leaves, xys_shift)
+    g_params, g_xys = leaf_grads(loss if views is None else loss.sum(),
+                                 leaves, xys_shift)
     adam_update(state.params.as_dict(), g_params, state.opt,
                 learning_rates(cfg, means_lr), state.alive)
     if accumulate:  # step < stop_split_at, host-known
@@ -105,11 +115,11 @@ def train_step_impl(
         metrics = {
             "loss": loss.detach(),
             "psnr": psnr(out.rgb.detach(), gt_image),
-            "n_visible": out.mask.sum(),
+            "n_visible": out.mask.sum(-1),
             "n_isects": out.n_isects,
             "n_cands": out.n_cands,
             "n_grads": out.n_grads,
-            "n_alive": state.alive.sum(),
+            "n_alive": state.alive.sum(-1),
         }
     return state, metrics
 
