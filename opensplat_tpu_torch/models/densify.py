@@ -32,6 +32,7 @@ import torch
 
 from ..ops.tensor_math import quat_to_rotmat
 from ..optim.adam import AdamState
+from ..utils.metrics import host_sync
 from .gaussians import DensifyStats, GaussianParams, TrainState, zero_stats
 
 
@@ -87,9 +88,11 @@ def count_refine_needs(state: TrainState, maxwh: float, cfg,
     """(n_alive, n_free, n_needed), so the host can grow capacity first."""
     splits, dups = _split_dup_masks(state.params, state.stats, state.alive,
                                     maxwh, cfg, use_screen_size)
-    n_alive = int(state.alive.sum())
+    with host_sync("refine", state.alive.device, 3):
+        n_alive = int(state.alive.sum())
+        n_splits, n_dups = int(splits.sum()), int(dups.sum())
     c = state.alive.shape[0]
-    needed = cfg.n_split_samples * int(splits.sum()) + int(dups.sum())
+    needed = cfg.n_split_samples * n_splits + n_dups
     return n_alive, c - n_alive, needed
 
 
@@ -108,7 +111,8 @@ def _place_candidates(params: GaussianParams, mu: Dict[str, torch.Tensor],
     """Write candidate Gaussians into free slots dst (C = dropped) and zero
     their Adam moments."""
     c = alive.shape[0]
-    rows = torch.nonzero(dst < c).squeeze(1)
+    with host_sync("refine", dst.device):
+        rows = torch.nonzero(dst < c).squeeze(1)
     d = dst[rows]
     cd = cand.as_dict()
     new_params = GaussianParams(**{
@@ -126,7 +130,8 @@ def _place_candidates(params: GaussianParams, mu: Dict[str, torch.Tensor],
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    with host_sync("refine", device):
+        return torch.tensor(x, dtype=torch.float32, device=device)
 
 
 @torch.no_grad()
@@ -200,7 +205,8 @@ def refine_step(
         dup_cand = params
 
         # slot allocation: dead slots in index order, sentinel C = dropped
-        free = torch.nonzero(~alive).squeeze(1)
+        with host_sync("refine", alive.device):
+            free = torch.nonzero(~alive).squeeze(1)
         free = torch.cat([free, free.new_full((1,), c)])
         n_free = free.shape[0] - 1
 

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.metrics import host_sync, span
 from .kernels.expand import expand
 from .projection import BLOCK_X, BLOCK_Y, ProjectedGaussians
 from .rasterize import ALPHA_THRESH
@@ -77,6 +78,11 @@ def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
     the JAX bin_gaussians(opacities=None)); isect_counts is then
     num_tiles_hit. Projections with a leading view axis (V, C, ...) bin
     as one stream of V views (opacities (C,) shared or (V, C))."""
+    with span("render.bin"):
+        return _bin(proj, height, width, opacities)
+
+
+def _bin(proj, height, width, opacities) -> BinnedGaussians:
     tb_x, tb_y = num_tiles(height, width)
     n_tiles = tb_x * tb_y
     dev = proj.xys.device
@@ -85,7 +91,10 @@ def bin_gaussians(proj: ProjectedGaussians, height: int, width: int,
     per_view = proj.num_tiles_hit.shape[-1]
     cnt = proj.num_tiles_hit.reshape(-1).to(torch.int32).contiguous()
     cum = torch.cumsum(cnt.long(), 0)
-    total = int(cum[-1]) if cnt.numel() else 0  # the one host read per call
+    total = 0
+    if cnt.numel():
+        with host_sync("stream_total", dev):  # the one host read per call
+            total = int(cum[-1])
     if total >= 2**31 or cnt.numel() >= 2**31:
         raise ValueError(
             f"bin_gaussians: {total} candidate rows of {cnt.numel()} "

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import host_sync
 from .views import aligned
 
 Z_NEAR = 0.001
@@ -17,8 +18,10 @@ def projection_matrix(z_near: float, z_far: float, fov_x, fov_y,
                       device="cpu") -> torch.Tensor:
     """OpenGL perspective projection; row 3 = [0, 0, 1, 0] (w = view z)."""
     f32 = torch.float32
-    fov_x = torch.as_tensor(fov_x, dtype=f32, device=device)
-    fov_y = torch.as_tensor(fov_y, dtype=f32, device=device)
+    # uploads of the host's fields of view
+    with host_sync("camera", device, 2):
+        fov_x = torch.as_tensor(fov_x, dtype=f32, device=device)
+        fov_y = torch.as_tensor(fov_y, dtype=f32, device=device)
     t = z_near * torch.tan(0.5 * fov_y)
     b = -t
     r = z_near * torch.tan(0.5 * fov_x)
@@ -28,9 +31,11 @@ def projection_matrix(z_near: float, z_far: float, fov_x, fov_y,
     m[0, 2] = (r + l) / (r - l)
     m[1, 1] = 2.0 * z_near / (t - b)
     m[1, 2] = (t + b) / (t - b)
-    m[2, 2] = (z_far + z_near) / (z_far - z_near)
-    m[2, 3] = -1.0 * z_far * z_near / (z_far - z_near)
-    m[3, 2] = 1.0
+    # Python numbers written to the device
+    with host_sync("camera", device, 3):
+        m[2, 2] = (z_far + z_near) / (z_far - z_near)
+        m[2, 3] = -1.0 * z_far * z_near / (z_far - z_near)
+        m[3, 2] = 1.0
     return m
 
 
@@ -48,8 +53,9 @@ def camera_matrices(cam_to_world: torch.Tensor, fx, fy, width: int, height: int)
     dev = c2w.device
     R = c2w[:3, :3]
     T = c2w[:3, 3]
-    flip = torch.diag(torch.tensor([1.0, -1.0, -1.0], dtype=torch.float32,
-                                   device=dev))
+    with host_sync("camera", dev):
+        flip = torch.diag(torch.tensor([1.0, -1.0, -1.0],
+                                       dtype=torch.float32, device=dev))
     Rinv = (R @ flip).T
     Tinv = -Rinv @ T
     viewmat = torch.eye(4, dtype=torch.float32, device=dev)

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..._device import resolve_device
+from ...utils.metrics import span
 from ..binning import bin_gaussians
 from ..projection import ProjectedGaussians
 from .raster import compact_grad_layout, rasterize_backward, rasterize_forward
@@ -117,11 +118,13 @@ def rasterize_fast(
     )
     with torch.no_grad():
         binned = bin_gaussians(proj, height, width, opac.detach())
-    img, final_t, n_grads = _RasterizeBinned.apply(
-        xys.reshape(-1, 2), conics.reshape(-1, 3), colors.reshape(-1, 3),
-        opac.reshape(-1), background.to(torch.float32), binned.gauss_ids,
-        binned.tile_start, binned.tile_end, binned.cand_index,
-        binned.cand_start, binned.cand_count, height, width, views)
+    with span("render.raster"):
+        img, final_t, n_grads = _RasterizeBinned.apply(
+            xys.reshape(-1, 2), conics.reshape(-1, 3), colors.reshape(-1, 3),
+            opac.reshape(-1), background.to(torch.float32),
+            binned.gauss_ids, binned.tile_start, binned.tile_end,
+            binned.cand_index, binned.cand_start, binned.cand_count, height,
+            width, views)
     n_isects = binned.n_isects
     if not batched:
         img, final_t, n_isects, n_grads = (

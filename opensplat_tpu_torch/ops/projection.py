@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.metrics import host_sync
 from .tensor_math import quat_to_rotmat
 from .views import per_view
 
@@ -96,8 +97,10 @@ def project_gaussians(
 def _view_col(vals, device) -> torch.Tensor:
     """V per-view scalars as a float32 (V, 1) column, each rounded as a
     Python scalar operand is."""
-    return torch.tensor([float(v) for v in vals], dtype=torch.float32,
-                        device=device)[:, None]
+    vals = [float(v) for v in vals]
+    with host_sync("view_cols", device):
+        col = torch.tensor(vals, dtype=torch.float32, device=device)
+    return col[:, None]
 
 
 def _project_views(means, scales, glob_scale, quats, viewmat, projmat, fx,

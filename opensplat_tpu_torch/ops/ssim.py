@@ -14,6 +14,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..utils.metrics import host_sync, span
 from .views import per_view
 
 
@@ -42,10 +43,10 @@ def _blur_mats(h: int, w: int, device):
     key = (h, w, str(device))
     if key not in _blur_cache:
         g = _gauss_1d()
-        _blur_cache[key] = (
-            torch.from_numpy(_band_matrix(h, g)).to(device),
-            torch.from_numpy(_band_matrix(w, g)).to(device),
-        )
+        bands = _band_matrix(h, g), _band_matrix(w, g)
+        with host_sync("blur_mats", device, 2):
+            _blur_cache[key] = tuple(torch.from_numpy(b).to(device)
+                                     for b in bands)
     return _blur_cache[key]
 
 
@@ -69,25 +70,26 @@ def _blur(img: torch.Tensor, bh: torch.Tensor, bw: torch.Tensor):
 def ssim(rendered: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """Mean SSIM between two (H, W, 3) images in [0, 1] (img1 = gt,
     img2 = rendered, as ssim.cpp:9-10)."""
-    h, w = gt.shape[0], gt.shape[1]
-    bh, bw = _blur_mats(h, w, gt.device)
-    img1 = gt.to(torch.float32)
-    img2 = rendered.to(torch.float32)
-    with _highest_matmul_precision():
-        mu1 = _blur(img1, bh, bw)
-        mu2 = _blur(img2, bh, bw)
-        mu1_sq = mu1 * mu1
-        mu2_sq = mu2 * mu2
-        mu1_mu2 = mu1 * mu2
-        sigma1_sq = _blur(img1 * img1, bh, bw) - mu1_sq
-        sigma2_sq = _blur(img2 * img2, bh, bw) - mu2_sq
-        sigma12 = _blur(img1 * img2, bh, bw) - mu1_mu2
-    c1 = 0.01 ** 2
-    c2 = 0.03 ** 2
-    ssim_map = ((2.0 * mu1_mu2 + c1) * (2.0 * sigma12 + c2)) / (
-        (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
-    )
-    return ssim_map.mean()
+    with span("loss.ssim"):
+        h, w = gt.shape[0], gt.shape[1]
+        bh, bw = _blur_mats(h, w, gt.device)
+        img1 = gt.to(torch.float32)
+        img2 = rendered.to(torch.float32)
+        with _highest_matmul_precision():
+            mu1 = _blur(img1, bh, bw)
+            mu2 = _blur(img2, bh, bw)
+            mu1_sq = mu1 * mu1
+            mu2_sq = mu2 * mu2
+            mu1_mu2 = mu1 * mu2
+            sigma1_sq = _blur(img1 * img1, bh, bw) - mu1_sq
+            sigma2_sq = _blur(img2 * img2, bh, bw) - mu2_sq
+            sigma12 = _blur(img1 * img2, bh, bw) - mu1_mu2
+        c1 = 0.01 ** 2
+        c2 = 0.03 ** 2
+        ssim_map = ((2.0 * mu1_mu2 + c1) * (2.0 * sigma12 + c2)) / (
+            (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2)
+        )
+        return ssim_map.mean()
 
 
 def l1(rendered: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

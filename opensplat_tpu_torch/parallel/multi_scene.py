@@ -22,6 +22,7 @@ from ..models.gaussians import (TrainState, grow_capacity, round_capacity,
 from ..optim.adam import means_lr_schedule
 from ..train import (StepOutcome, Trainer, get_downscale_factor,
                      sh_degrees_for_step, train_step_impl)
+from ..utils.metrics import count, host_sync, span
 from .mesh import Mesh
 
 _FLOAT_METRICS = ("loss", "psnr")
@@ -130,23 +131,38 @@ class MultiSceneTrainer:
             for s in states])
 
     def run_step(self, step: int) -> StepOutcome:
+        count("trainer.steps")
+        count("trainer.scene_steps", self.n_local)
+        with span("trainer.run_step"):
+            metrics = self._step(step)
+        out = dict(metrics)
+        out["loss"] = metrics["loss"].mean()
+        out["psnr"] = metrics["psnr"].mean()
+        out["n_alive"] = metrics["n_alive"].sum()
+        out["loss_per_scene"] = metrics["loss"]
+        return StepOutcome(out)
+
+    def _step(self, step: int) -> dict:
         cfg = self.cfg
         factor = get_downscale_factor(step, cfg)
-        cams, gts = [], []
-        for ch in self.children:
-            idx = ch.sampler.next()
-            cams.append(ch.cameras[idx])
-            gts.append(ch._gt_on_device(idx, factor))
-        shapes = {tuple(g.shape) for g in gts}
-        if len(shapes) != 1:
-            raise ValueError(f"multi-scene batch needs equal image sizes at "
-                             f"factor {factor}, got {sorted(shapes)}")
+        with span("trainer.gt"):
+            cams, gts = [], []
+            for ch in self.children:
+                idx = ch.sampler.next()
+                cams.append(ch.cameras[idx])
+                gts.append(ch._gt_on_device(idx, factor))
+            shapes = {tuple(g.shape) for g in gts}
+            if len(shapes) != 1:
+                raise ValueError(f"multi-scene batch needs equal image sizes "
+                                 f"at factor {factor}, got {sorted(shapes)}")
+            with host_sync("pose", self.device):
+                poses = torch.as_tensor(
+                    np.stack([np.asarray(c.cam_to_world, np.float32)
+                              for c in cams]), device=self.device)
         h, w = int(gts[0].shape[0]), int(gts[0].shape[1])
         self.last_hw = (h, w)
         args = (
-            self.state,
-            torch.as_tensor(np.stack([np.asarray(c.cam_to_world, np.float32)
-                                      for c in cams]), device=self.device),
+            self.state, poses,
             [c.fx / factor for c in cams], [c.fy / factor for c in cams],
             [c.cx / factor for c in cams], [c.cy / factor for c in cams],
             torch.stack(gts),
@@ -163,13 +179,9 @@ class MultiSceneTrainer:
         self._note_demand(step, (h, w), [metrics[k].max() for k in
                                          ("n_cands", "n_isects", "n_grads")])
         if step % cfg.refine_every == 0 and step > cfg.warmup_length:
-            self._refine(step)
-        out = dict(metrics)
-        out["loss"] = metrics["loss"].mean()
-        out["psnr"] = metrics["psnr"].mean()
-        out["n_alive"] = metrics["n_alive"].sum()
-        out["loss_per_scene"] = metrics["loss"]
-        return StepOutcome(out)
+            with span("trainer.refine"):
+                self._refine(step)
+        return metrics
 
     def _refine(self, step: int):
         refine = []

@@ -29,6 +29,7 @@ from .models.gaussians import (PARAM_NAMES, GaussianParams, TrainState,
 from .models.splat_model import DEFAULT_BACKGROUND, render_forward
 from .ops.ssim import main_loss, psnr
 from .optim.adam import adam_update, means_lr_schedule
+from .utils.metrics import count, host_sync, span
 
 
 def get_downscale_factor(step: int, cfg: TrainConfig) -> int:
@@ -91,36 +92,44 @@ def train_step_impl(
     kernel launches once, the stream is sorted and sized once (one host
     read) and Adam updates once for all scenes; each scene's loss and
     state are the bits of its own step."""
-    dev = state.device
-    views = cam_to_world.shape[0] if cam_to_world.dim() == 3 else None
-    background = torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32,
-                              device=dev)
-    leaves = {k: v.detach().requires_grad_(True)
-              for k, v in state.params.as_dict().items()}
-    xys_shift = torch.zeros(state.alive.shape + (2,), dtype=torch.float32,
-                            device=dev, requires_grad=True)
-    out = render_forward(
-        GaussianParams(**leaves), state.alive, cam_to_world, fx, fy, cx, cy,
-        height, width, sh_deg, background, xys_shift=xys_shift,
-        renderer=renderer, device=dev)
-    loss = main_loss(out.rgb, gt_image, cfg.ssim_weight)
-    g_params, g_xys = leaf_grads(loss if views is None else loss.sum(),
-                                 leaves, xys_shift)
-    adam_update(state.params.as_dict(), g_params, state.opt,
-                learning_rates(cfg, means_lr), state.alive)
-    if accumulate:  # step < stop_split_at, host-known
-        state.stats = accumulate_stats(state.stats, g_xys, out.radii,
-                                       height, width)
-    with torch.no_grad():
-        metrics = {
-            "loss": loss.detach(),
-            "psnr": psnr(out.rgb.detach(), gt_image),
-            "n_visible": out.mask.sum(-1),
-            "n_isects": out.n_isects,
-            "n_cands": out.n_cands,
-            "n_grads": out.n_grads,
-            "n_alive": state.alive.sum(-1),
-        }
+    with span("step"):
+        dev = state.device
+        views = cam_to_world.shape[0] if cam_to_world.dim() == 3 else None
+        with host_sync("background", dev):
+            background = torch.tensor(DEFAULT_BACKGROUND,
+                                      dtype=torch.float32, device=dev)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in state.params.as_dict().items()}
+        xys_shift = torch.zeros(state.alive.shape + (2,),
+                                dtype=torch.float32, device=dev,
+                                requires_grad=True)
+        with span("step.render"):
+            out = render_forward(
+                GaussianParams(**leaves), state.alive, cam_to_world, fx, fy,
+                cx, cy, height, width, sh_deg, background,
+                xys_shift=xys_shift, renderer=renderer, device=dev)
+        with span("step.loss"):
+            loss = main_loss(out.rgb, gt_image, cfg.ssim_weight)
+        with span("step.backward"):
+            g_params, g_xys = leaf_grads(
+                loss if views is None else loss.sum(), leaves, xys_shift)
+        with span("step.adam"):
+            adam_update(state.params.as_dict(), g_params, state.opt,
+                        learning_rates(cfg, means_lr), state.alive)
+        with span("step.stats"):
+            if accumulate:  # step < stop_split_at, host-known
+                state.stats = accumulate_stats(state.stats, g_xys, out.radii,
+                                               height, width)
+            with torch.no_grad():
+                metrics = {
+                    "loss": loss.detach(),
+                    "psnr": psnr(out.rgb.detach(), gt_image),
+                    "n_visible": out.mask.sum(-1),
+                    "n_isects": out.n_isects,
+                    "n_cands": out.n_cands,
+                    "n_grads": out.n_grads,
+                    "n_alive": state.alive.sum(-1),
+                }
     return state, metrics
 
 
@@ -230,12 +239,15 @@ class Trainer:
         hit = self._gt_cache.get(key)
         if hit is not None:
             self._gt_cache.move_to_end(key)
+            count("gt.hits")
             return hit
-        arr = torch.as_tensor(
-            np.ascontiguousarray(self.cameras[cam_idx].get_image(factor),
-                                 np.float32),
-            device=self.device)
+        image = np.ascontiguousarray(self.cameras[cam_idx].get_image(factor),
+                                     np.float32)
+        with host_sync("gt_upload", self.device):
+            arr = torch.as_tensor(image, device=self.device)
         nbytes = arr.numel() * arr.element_size()
+        count("gt.misses")
+        count("gt.upload_bytes", nbytes)
         if nbytes > self._gt_cache_budget:
             return arr
         while self._gt_cache and (
@@ -274,28 +286,34 @@ class Trainer:
         return self.state
 
     def run_step(self, step: int) -> StepOutcome:
-        cfg = self.cfg
-        cam_idx = self.sampler.next()
-        cam = self.cameras[cam_idx]
-        factor = get_downscale_factor(step, cfg)
-        gt = self._gt_on_device(cam_idx, factor)
-        h, w = int(gt.shape[0]), int(gt.shape[1])
-        self.last_hw = (h, w)
-        means_lr = means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
-                                     cfg.num_iters, step - 1)
-        self.state, metrics = train_step_impl(
-            self.state,
-            torch.as_tensor(np.asarray(cam.cam_to_world, np.float32),
-                            device=self.device),
-            cam.fx / factor, cam.fy / factor, cam.cx / factor,
-            cam.cy / factor, gt, means_lr, h, w,
-            sh_degrees_for_step(step, cfg), cfg,
-            accumulate=step < cfg.stop_split_at, renderer=self.renderer,
-        )
-        self._note_demand(step, (h, w), [metrics[k] for k in
-                                         ("n_cands", "n_isects", "n_grads")])
-        if step % cfg.refine_every == 0 and step > cfg.warmup_length:
-            self._refine(step)
+        count("trainer.steps")
+        count("trainer.scene_steps")
+        with span("trainer.run_step"):
+            cfg = self.cfg
+            with span("trainer.gt"):
+                cam_idx = self.sampler.next()
+                cam = self.cameras[cam_idx]
+                factor = get_downscale_factor(step, cfg)
+                gt = self._gt_on_device(cam_idx, factor)
+                with host_sync("pose", self.device):
+                    pose = torch.as_tensor(
+                        np.asarray(cam.cam_to_world, np.float32),
+                        device=self.device)
+            h, w = int(gt.shape[0]), int(gt.shape[1])
+            self.last_hw = (h, w)
+            means_lr = means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
+                                         cfg.num_iters, step - 1)
+            self.state, metrics = train_step_impl(
+                self.state, pose, cam.fx / factor, cam.fy / factor,
+                cam.cx / factor, cam.cy / factor, gt, means_lr, h, w,
+                sh_degrees_for_step(step, cfg), cfg,
+                accumulate=step < cfg.stop_split_at, renderer=self.renderer,
+            )
+            self._note_demand(step, (h, w), [
+                metrics[k] for k in ("n_cands", "n_isects", "n_grads")])
+            if step % cfg.refine_every == 0 and step > cfg.warmup_length:
+                with span("trainer.refine"):
+                    self._refine(step)
         return StepOutcome(metrics)
 
     def _note_demand(self, step: int, hw: tuple, demand) -> None:
@@ -303,7 +321,9 @@ class Trainer:
         `demand` is read (a sync) at the JAX Trainer's cadence: warm-up
         steps, every 10th step, refine boundaries."""
         if step <= 3 or step % 10 == 0 or step % self.cfg.refine_every == 0:
-            d = [int(v) for v in demand]
+            with span("trainer.demand"), host_sync(
+                    "demand", self.device, len(demand)):
+                d = [int(v) for v in demand]
             prev = self.demand.get(hw, [0, 0, 0])
             self.demand[hw] = [max(a, b) for a, b in zip(prev, d)]
 
@@ -335,7 +355,8 @@ class Trainer:
                 self.state, maxwh, cfg, use_screen_size, do_densification,
                 do_cull_huge, do_reset,
                 generator=refine_generator(cfg.seed, step, self.state.device))
-            self.refine_metrics = {k: int(v) for k, v in metrics.items()}
+            with host_sync("refine", self.state.device, len(metrics)):
+                self.refine_metrics = {k: int(v) for k, v in metrics.items()}
         else:
             # stats are still cleared on every refine boundary (model.cpp:482)
             self.state.stats = zero_stats(self.state.alive.shape[0],

@@ -8,7 +8,8 @@ import torch
 
 from opensplat_tpu.utils.metrics import MetricsLogger as JMetricsLogger
 from opensplat_tpu_torch.data._image import decode_png
-from opensplat_tpu_torch.utils.metrics import MetricsLogger, profile_trace
+from opensplat_tpu_torch.utils.metrics import (MetricsLogger, profile_trace,
+                                               span, take_spans)
 from opensplat_tpu_torch.utils.report import TrainingReport, _png_b64
 
 # one intra-op thread per process: the suite runs one pytest-xdist
@@ -46,8 +47,8 @@ def test_metrics_jsonl_matches_jax(tmp_path):
 
 def test_metrics_no_sink():
     m = MetricsLogger("")
-    m.step(1, 0.1, 30.0, 10, 32, 32)
-    assert m.last_record["n_gaussians"] == 10
+    rec = m.step(1, 0.1, 30.0, 10, 32, 32)
+    assert rec["n_gaussians"] == 10
     m.close()
 
 
@@ -55,10 +56,14 @@ def test_profile_trace(tmp_path):
     with profile_trace(""):
         pass
     out = tmp_path / "prof"
+    take_spans()
     with profile_trace(str(out)):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with span("step.probe"):  # the tracer is on in the window
+            torch.ones(64, 64) @ torch.ones(64, 64)
     trace = json.loads((out / "trace.json").read_text())
     assert trace["traceEvents"]
+    assert any(e.get("name") == "step.probe" for e in trace["traceEvents"])
+    assert [s.name for s in take_spans()] == ["step.probe"]
 
 
 def test_report_html_and_snapshot_cap(tmp_path):
