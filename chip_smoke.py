@@ -143,14 +143,23 @@ Phases (any failure raises and the script exits non-zero):
      BENCH_SCENES=2 bench line (s2-vmap); then tests/
      test_torch_grad_sanitize.py's degenerate splats through the CUDA
      raster_bwd, one view and a batch of two: every gradient finite.
+ 12. the SSIM kernel pair (csrc/ssim.cu) at 800 x 800 and 1297 x 840
+     against its plain version and a float64 direct SSIM, timed beside
+     its bound, its plain version and the parent's banded-GEMM SSIM,
+     and untimed at tests/test_torch_ssim.py's small shapes and the
+     downscaled training sizes; a 4-view main_loss launching each
+     kernel entry once a view, with no cuBLAS kernel (ssim_phase).
 The line before the last is the {"kernels": [...]} table (with each
 training kernel's phase-7 launches as `cli_launches`, expand's and
 segsum's over phase 8's tiled Trainer steps as `tiled_launches`, rank
 0's launches on each phase-9 path as `parallel_launches`, and phase
 10's three 1080 px steps' launches, device ms per launch and bound as
 `sweep_launches`, `device_ms_1080` and `bound_ms_1080`, and phase 11's
-launches over each path's 20 batched steps as `batched_launches`); the
-last line
+launches over each path's 20 batched steps as `batched_launches`; the
+`ssim` row is phase 12's at 800 x 800, its `library_ms` the banded-GEMM
+SSIM's, its `garden` the 1297 x 840 figures, and its `cli_launches`,
+`parallel_launches` and `batched_launches` the [forward, backward]
+launches of phases 7, 9 and 11, one a view); the last line
 is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
 """
@@ -753,8 +762,8 @@ def cli_phase(n_points, size, n_steps, device, tmp):
     sixth of the steps, a validation camera, checkpoints every half,
     the oracle check), deletes the last checkpoint and the scene, runs
     again with --auto-resume and compares the scenes. Raises on a
-    failed check; returns each training kernel's launch count over the
-    first run."""
+    failed check; returns each training kernel's and SSIM entry's launch
+    count over the first run."""
     import contextlib
     import io
     import shutil
@@ -768,7 +777,7 @@ def cli_phase(n_points, size, n_steps, device, tmp):
 
     cuda = torch.device(device).type == "cuda"
     third, sixth, half = n_steps // 3, n_steps // 6, n_steps // 2
-    wrappers = training_wrappers()
+    wrappers = counted_wrappers()
     proj, out = os.path.join(tmp, "project"), os.path.join(tmp, "out")
     t0 = time.perf_counter()
     n_sparse = make_project(proj, cams=16, points=n_points, res=size,
@@ -1386,8 +1395,17 @@ def training_wrappers():
             "segsum": segsum.segment_sum}
 
 
+def counted_wrappers():
+    """training_wrappers() and the SSIM kernel pair's two entries, which
+    launch once a view (S or D times a batched step), not once a step."""
+    from opensplat_tpu_torch.ops.kernels import ssim
+
+    return dict(training_wrappers(), ssim_fwd=ssim.ssim_forward,
+                ssim_bwd=ssim.ssim_backward)
+
+
 def drive(trainer, steps, snapshot_at=None):
-    """trainer.run_step(1..steps) with every training kernel's counter set
+    """trainer.run_step(1..steps) with every counted wrapper's counter set
     to 0 before and read after. Returns (losses, steady steps/s over the
     second half, host clock ending in a synchronize; launches; the state
     copied after step `snapshot_at`)."""
@@ -1395,7 +1413,7 @@ def drive(trainer, steps, snapshot_at=None):
 
     from opensplat_tpu_torch.models.gaussians import state_map
 
-    wrappers = training_wrappers()
+    wrappers = counted_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     cuda = trainer.state.device.type == "cuda"
@@ -1467,7 +1485,7 @@ def rank_dp_gs(work, n_points, size, steps, device):
               losses=np.array(losses), sps=sps, launches=json.dumps(launches))
 
     mesh = make_mesh(1, 2)
-    wrappers = training_wrappers()
+    wrappers = counted_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     shard = shard_state(mesh, state_map(lambda x: x.clone(), fresh))
@@ -1513,10 +1531,11 @@ def rank_hybrid(work, n_points, size, steps, device):
 
 def rank_cli(module, argv):
     """A rank of a CLI run in phase 9: module.main(argv), then the four
-    training kernels' launches as a last JSON line."""
+    training kernels' and the SSIM entries' launches as a last JSON
+    line."""
     import importlib
 
-    wrappers = training_wrappers()
+    wrappers = counted_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     rc = importlib.import_module(module).main(argv)
@@ -1559,9 +1578,9 @@ def close(label, got, want, rtol, atol, phase=9):
 
 
 def rank_launches(outs_or_npz, label, need):
-    """Each rank's launch counts; raises if a training kernel of a rank
-    launched fewer than `need` times (none on the CPU, where the plain
-    versions run)."""
+    """Each rank's launch counts; raises if a training kernel or SSIM
+    entry of a rank launched fewer than `need` times (none on the CPU,
+    where the plain versions run)."""
     counts = []
     for item in outs_or_npz:
         if isinstance(item, str):
@@ -1595,9 +1614,9 @@ def parallel_phase(n_points, size, steps, device, work, project, smi):
     process; multi_scene_cli --sharded on phase 7's project and a second
     one over 2 ranks at half size. (e) cli --distributed --data-parallel
     -1 on phase 7's project over 2 ranks. Every rank must launch every
-    training kernel (on a card). Ranks that share a card measure
-    correctness, not scaling. Returns {kernel: {path: rank 0's
-    launches}}."""
+    training kernel and SSIM entry (on a card). Ranks that share a card
+    measure correctness, not scaling. Returns {kernel or SSIM entry:
+    {path: rank 0's launches}}."""
     import shutil
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1652,7 +1671,7 @@ def parallel_phase(n_points, size, steps, device, work, project, smi):
                              for st, _ in scenes], [c for _, c in scenes],
                             cfg, device=device)
     solo = [Trainer(st, c, cfg, device=device) for st, c in scenes]
-    wrappers = training_wrappers()
+    wrappers = counted_wrappers()
     ms_launches = dict.fromkeys(wrappers, 0)
     for step in range(1, steps + 1):
         before = {k: fn.launches for k, fn in wrappers.items()}
@@ -1662,10 +1681,11 @@ def parallel_phase(n_points, size, steps, device, work, project, smi):
         if per != [t.run_step(step).loss for t in solo]:
             raise AssertionError(f"phase 9 multi-scene: step {step} losses "
                                  f"{per} differ from the Trainers'")
-    if cuda and any(n != steps for n in ms_launches.values()):
+    if cuda and any(n != (2 * steps if k.startswith("ssim") else steps)
+                    for k, n in ms_launches.items()):
         raise AssertionError(f"phase 9 multi-scene: launches {ms_launches} "
                              f"in {steps} steps of both scenes (one a "
-                             "step)")
+                             "step, SSIM's one a scene)")
     for got, t in zip(msc.scene_states(), solo):
         rows = t.state.alive.shape[0]
         if not torch.equal(got.alive[:rows], t.state.alive) or \
@@ -1678,7 +1698,8 @@ def parallel_phase(n_points, size, steps, device, work, project, smi):
     print(f"parallel multi-scene: 2 scenes x {n_points} Gaussians, {size} "
           f"px, {steps} steps: losses and alive rows equal to two "
           f"Trainers' bitwise (capacity {msc.state.alive.shape[1]}); "
-          f"launches of the batched steps (both scenes, one a step) "
+          f"launches of the batched steps (both scenes, one a step, "
+          f"SSIM's one a scene) "
           f"{json.dumps(ms_launches)}", flush=True)
     dist.destroy_process_group()
 
@@ -1816,7 +1837,7 @@ def parallel_phase(n_points, size, steps, device, work, project, smi):
              "hybrid": hy_launches[0], "multi_scene": ms_launches,
              "multi_scene_cli": ms_cli_launches[0], "cli": cli_launches[0]}
     return {k: {p: c[k] for p, c in paths.items()}
-            for k in training_wrappers()}
+            for k in counted_wrappers()}
 
 
 BENCH_MODES = (("dp", {"BENCH_DP": "2"}), ("mp", {"BENCH_MP": "2"}),
@@ -2155,7 +2176,7 @@ def multi_scene_steps(scenes, n_steps, sh_deg, cfg):
     stacked = stack_states([clone_state(st) for st, _ in scenes])
     size = scenes[0][1][0].width
     dev = stacked.device
-    wrappers = training_wrappers()
+    wrappers = counted_wrappers()
     launches = {"batched": dict.fromkeys(wrappers, 0),
                 "single": dict.fromkeys(wrappers, 0)}
     secs = {"batched": 0.0, "single": 0.0}
@@ -2270,7 +2291,7 @@ def camera_batch_steps(state, cams, n_steps, sh_deg, cfg):
                           device=dev)
     gts = torch.stack([torch.as_tensor(c.get_image(1), device=dev)
                        for c in cams])
-    wrappers = training_wrappers()
+    wrappers = counted_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     counted = dict.fromkeys(wrappers, 0)
@@ -2364,15 +2385,16 @@ def batched_phase(n_points, size, n_steps, smi, device="cuda"):
     seeds 0-3). (a) For S = 2 and S = 4 scenes and for D = 2 cameras on
     one state: check_batched_kernels. (b) n_steps of
     multi_scene_train_step (S = 2, 4) against S train_step_impl calls,
-    bitwise (multi_scene_steps), each kernel launched once a step; n_steps
-    batched_train_steps (D = 2, anisotropic scales so that the quats
-    carry real gradients) against the loop formulation
-    (camera_batch_steps), each kernel launched once a step. (c) Host-clock
-    scene-steps/s of the batched step beside S single steps, launches a
-    step of the four kernels and of PyTorch's elementwise kernels, and
-    one BENCH_SCENES=2 bench line, with the card. Then the degenerate
-    splats (degenerate_check). Returns {kernel: {path: launches}} of the
-    batched steps."""
+    bitwise (multi_scene_steps), each kernel launched once a step and
+    each SSIM entry S times; n_steps batched_train_steps (D = 2,
+    anisotropic scales so that the quats carry real gradients) against
+    the loop formulation (camera_batch_steps), each kernel launched once
+    a step and each SSIM entry twice. (c) Host-clock scene-steps/s of
+    the batched step beside S single steps, launches a step of the four
+    kernels and of PyTorch's elementwise kernels, and one BENCH_SCENES=2
+    bench line, with the card. Then the degenerate splats
+    (degenerate_check). Returns {kernel or SSIM entry: {path:
+    launches}} of the batched steps."""
     import torch
 
     from opensplat_tpu_torch.config import TrainConfig
@@ -2398,7 +2420,8 @@ def batched_phase(n_points, size, n_steps, smi, device="cuda"):
     for s in (2, 4):
         got, single, secs, (a_b, a_s) = multi_scene_steps(
             scenes[:s], n_steps, 3, cfg)
-        if any(n != need for n in got.values()):
+        if any(n != (s * need if k.startswith("ssim") else need)
+               for k, n in got.items()):
             raise AssertionError(f"multi-scene S={s}: launches {got} in "
                                  f"{n_steps} batched steps")
         out[f"s{s}"] = got
@@ -2418,7 +2441,8 @@ def batched_phase(n_points, size, n_steps, smi, device="cuda"):
     st_a = clone_state(st0)
     st_a.params = anisotropic(st_a.params)
     got, worst = camera_batch_steps(st_a, cams0[:2], n_steps, 3, cfg)
-    if any(n != need for n in got.values()):
+    if any(n != (2 * need if k.startswith("ssim") else need)
+           for k, n in got.items()):
         raise AssertionError(f"camera batch: launches {got} in {n_steps} "
                              "steps")
     out["d2"] = got
@@ -2443,7 +2467,219 @@ def batched_phase(n_points, size, n_steps, smi, device="cuda"):
     degenerate_check(device)
     print(f"batched phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return {k: {p: c[k] for p, c in out.items()} for k in training_wrappers()}
+    return {k: {p: c[k] for p, c in out.items()} for k in counted_wrappers()}
+
+
+# float32 operations SSIM needs per pixel and channel: five 11-tap
+# separable blurs and the map forward, 242; the map's gradient and the
+# three transposed blurs that reach the rendered image backward, 162
+OPS_SSIM = 242 + 162
+# bytes a pixel: both images read by the forward and again by the
+# backward (2 x 24), the gradient written (12)
+BYTES_SSIM = 60
+# SSIM's sizes on the main path: lego (800 x 800), garden at images_4
+SSIM_SIZES = ((800, 800), (840, 1297))
+# held to the plain version too, untimed: tests/test_torch_ssim.py's
+# shapes (images smaller than a 16 x 32 tile or the 11-tap window, ragged
+# edge tiles) and the sizes num_downscales = 2 trains at first, lego's
+# 200 and 400 px and garden's 324 x 210 and 648 x 420
+SSIM_EDGE_SIZES = ((40, 56), (37, 29), (7, 9), (1, 16), (64, 48),
+                   (200, 200), (400, 400), (210, 324), (420, 648))
+
+
+def banded_gemm_ssim(rendered, gt):
+    """The parent's SSIM, kept here as a yardstick only: the blur as two
+    float32 matmuls with banded H x H and W x W matrices, at "highest"
+    precision, differentiated by autograd."""
+    import torch
+
+    from opensplat_tpu_torch.ops.kernels.ssim import gauss_1d
+
+    def band(n):
+        g = torch.from_numpy(gauss_1d()).to(gt.device)
+        i = torch.arange(n, device=gt.device)
+        off = i[None, :] - i[:, None] + 5
+        return torch.where((off >= 0) & (off < 11), g[off.clamp(0, 10)],
+                           torch.zeros((), device=gt.device))
+
+    h, w = gt.shape[0], gt.shape[1]
+    bh, bw = band(h), band(w)
+
+    def blur(img):
+        t = (bh @ img.reshape(h, w * 3)).reshape(h, w, 3)
+        return bw @ t
+
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        mu1, mu2 = blur(gt), blur(rendered)
+        s11 = blur(gt * gt) - mu1 * mu1
+        s22 = blur(rendered * rendered) - mu2 * mu2
+        s12 = blur(gt * rendered) - mu1 * mu2
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    return (((2.0 * mu1 * mu2 + 0.01 ** 2) * (2.0 * s12 + 0.03 ** 2))
+            / ((mu1 * mu1 + mu2 * mu2 + 0.01 ** 2)
+               * (s11 + s22 + 0.03 ** 2))).mean()
+
+
+def ssim_phase(peak, device="cuda"):
+    """Phase 12: the SSIM kernel pair (csrc/ssim.cu) at lego's 800 x 800
+    and garden's 1297 x 840, and at SSIM_EDGE_SIZES. Per size: the
+    forward's value against the plain version's (rtol 1e-5: every
+    pixel's map value takes the same steps, only the mean's order of
+    summation differs), the gradient equal to the plain version's
+    bitwise (the same steps in the same order), both against the float64
+    direct SSIM (value rtol 1e-5, gradient 1e-4 of its largest entry:
+    float32 against float64), two calls bitwise equal, one launch of
+    each kernel entry a call. At the two main sizes besides: CUDA-event
+    ms (median of 20) and device ms (torch.profiler, 20 calls) of
+    forward + backward, the bound (bytes and operations over the card's
+    peaks), the plain version's ms and the parent's banded-GEMM SSIM's
+    (device ms too). Then main_loss on a batch of 4 views of 800 x 800,
+    as a lego.scenes4 step takes it: 4 forward and 4 backward launches,
+    no cuBLAS kernel in its device time, and each view equal to its own
+    call bitwise. Returns the kernels table's row for 800 x 800, with
+    the garden size's figures."""
+    import torch
+
+    from opensplat_tpu_torch.ops import ssim as tssim
+    from opensplat_tpu_torch.ops.kernels import ssim as kssim
+    from opensplat_tpu_torch.tools.profiling import device_rows
+
+    info = kssim.kernel_info()
+    print("ssim build (CUDA runtime): " + json.dumps(info), flush=True)
+    if (info["tile_h"], info["tile_w"]) != (kssim.TILE_H, kssim.TILE_W):
+        raise AssertionError("ssim: the kernel's tile differs from "
+                             "kssim.TILE_H, TILE_W")
+
+    def device_ms(fn, n=20):
+        fn()
+        return sum(ms * c for _, ms, c in device_rows(fn, n, device)) / n
+
+    def images(h, w):
+        gen = torch.Generator(device=device).manual_seed(h * w)
+        gt = torch.rand((h, w, 3), generator=gen, device=device)
+        img = (gt + 0.1 * torch.randn((h, w, 3), generator=gen,
+                                      device=device)).clamp(0, 1)
+        return gt, img, torch.ones((), device=device)
+
+    def check(h, w):
+        """The pair against the plain version and the float64 SSIM at
+        h x w; returns the gradient's largest difference from the plain
+        version's (0 when bitwise)."""
+        gt, img, one = images(h, w)
+        f0, b0 = kssim.ssim_forward.launches, kssim.ssim_backward.launches
+        v_k = kssim.ssim_forward(gt, img)
+        g_k = kssim.ssim_backward(gt, img, one)
+        if (kssim.ssim_forward.launches - f0,
+                kssim.ssim_backward.launches - b0) != (1, 1):
+            raise AssertionError("ssim: a call did not count one launch")
+        torch.cuda.synchronize()
+        if not (torch.equal(v_k, kssim.ssim_forward(gt, img))
+                and torch.equal(g_k, kssim.ssim_backward(gt, img, one))):
+            raise AssertionError(f"ssim {w} x {h}: two calls differ")
+        v_p = kssim.ssim_forward_plain(gt, img)
+        g_p = kssim.ssim_backward_plain(gt, img, one)
+        r = img.double().requires_grad_(True)
+        v_d = kssim.ssim_direct(r, gt)
+        v_d.backward()
+        g_d = r.grad
+        g_scale = float(g_d.abs().max())
+        err_v = abs(float(v_k) - float(v_p))
+        err_g = float((g_k - g_p).abs().max())
+        err_vd = abs(float(v_k) - float(v_d.detach()))
+        err_gd = float((g_k.double() - g_d).abs().max())
+        print(f"ssim {w} x {h}: value {float(v_k):.8f}, plain "
+              f"{float(v_p):.8f}, float64 {float(v_d.detach()):.8f}; "
+              f"gradient max abs diff {err_g:.3e} from plain, {err_gd:.3e} "
+              f"from float64 (largest entry {g_scale:.3e})", flush=True)
+        if err_v > 1e-5 * abs(float(v_p)) or not torch.equal(g_k, g_p):
+            raise AssertionError(f"ssim {w} x {h}: kernel differs from the "
+                                 "plain version")
+        if err_vd > 1e-5 * abs(float(v_d.detach())) or (
+                err_gd > 1e-4 * g_scale):
+            raise AssertionError(f"ssim {w} x {h}: kernel differs from the "
+                                 "float64 direct SSIM")
+        return err_g
+
+    for h, w in SSIM_EDGE_SIZES:
+        check(h, w)
+    rows = {}
+    for h, w in SSIM_SIZES:
+        err_g = check(h, w)
+        gt, img, one = images(h, w)
+        leaf = img.clone().requires_grad_(True)
+
+        def pair():
+            (1.0 - tssim.ssim(leaf, gt)).backward()
+
+        def plain():
+            kssim.ssim_forward_plain(gt, img)
+            kssim.ssim_backward_plain(gt, img, one)
+
+        def gemm():
+            (1.0 - banded_gemm_ssim(leaf, gt)).backward()
+
+        npx = h * w
+        tb = npx * BYTES_SSIM / peak[0] * 1e3
+        to = npx * 3 * OPS_SSIM / peak[1] * 1e3
+        rows[(h, w)] = {
+            "ms": time_ms(pair, 20), "device_ms": device_ms(pair),
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "plain_ms": time_ms(plain, 5), "gemm_ms": time_ms(gemm, 5),
+            "gemm_device_ms": device_ms(gemm, 5),
+            "max_abs_err": err_g,
+        }
+        print(f"ssim {w} x {h} forward + backward: " + json.dumps(
+            {k: v for k, v in rows[(h, w)].items()}), flush=True)
+        del leaf, gt, img
+
+    # a lego.scenes4 step's loss: 4 views of 800 x 800
+    gen = torch.Generator(device=device).manual_seed(4)
+    gts = torch.rand((4, 800, 800, 3), generator=gen, device=device)
+    imgs = (gts + 0.1 * torch.randn(gts.shape, generator=gen,
+                                    device=device)).clamp(0, 1)
+    batch = imgs.clone().requires_grad_(True)
+    losses = []
+
+    def step_loss():
+        batch.grad = None
+        losses[:] = [tssim.main_loss(batch, gts, 0.2)]
+        losses[0].sum().backward()
+
+    f0, b0 = kssim.ssim_forward.launches, kssim.ssim_backward.launches
+    step_loss()
+    got = (kssim.ssim_forward.launches - f0,
+           kssim.ssim_backward.launches - b0)
+    if got != (4, 4):
+        raise AssertionError(f"ssim: a 4-view loss launched {got}")
+    blas = [k for k, _, _ in device_rows(step_loss, 1, device)
+            if "gemm" in k.lower() or "gemv" in k.lower()]
+    if blas:
+        raise AssertionError(f"ssim: cuBLAS kernels in the loss: {blas}")
+    for v in range(4):
+        leaf = imgs[v].clone().requires_grad_(True)
+        lv = tssim.main_loss(leaf, gts[v], 0.2)
+        lv.backward()
+        if not (torch.equal(losses[0][v].detach(), lv.detach())
+                and torch.equal(batch.grad[v], leaf.grad)):
+            raise AssertionError(f"ssim: view {v} of a batch differs from "
+                                 "its own call")
+    print("ssim: a 4-view main_loss launches 4 forward and 4 backward, no "
+          "cuBLAS kernel; each view equals its own call bitwise", flush=True)
+    lego = rows[SSIM_SIZES[0]]
+    garden = rows[SSIM_SIZES[1]]
+    return {
+        "name": "ssim", "route": "cuda",
+        "source": "opensplat_tpu_torch/csrc/ssim.cu", "replaces": None,
+        "launches": got, "max_abs_err": lego["max_abs_err"],
+        "ms": lego["ms"], "plain_ms": lego["plain_ms"],
+        "bound_ms": lego["bound_ms"], "bound_by": lego["bound_by"],
+        "library_ms": lego["gemm_ms"], "device_ms": lego["device_ms"],
+        "garden": garden,
+    }
 
 
 def main():
@@ -2668,6 +2904,9 @@ def main():
     # phase 11: the batched multi-view step, and the degenerate splats
     batched_launches = batched_phase(131072, 512, 20, smi)
     done(11)
+    # phase 12: the SSIM kernel pair at the main path's sizes
+    ssim_row = ssim_phase(peak)
+    done(12)
 
     table = []
     for k, (src, rep) in KERNELS.items():
@@ -2686,6 +2925,17 @@ def main():
             "bound_ms_1080": bnd_1080.get(k, (None,))[0],
             "batched_launches": batched_launches.get(k),
         })
+    def pair(by_path):  # {path: [forward, backward] launches}
+        return {p: [n, by_path["ssim_bwd"][p]]
+                for p, n in by_path["ssim_fwd"].items()}
+
+    # the SSIM pair's launches on the main path's runs: phase 7's CLI,
+    # phase 9's paths (rank 0's), phase 11's batched steps
+    ssim_row.update(
+        cli_launches=[cli_launches["ssim_fwd"], cli_launches["ssim_bwd"]],
+        parallel_launches=pair(parallel_launches),
+        batched_launches=pair(batched_launches))
+    table.append(ssim_row)
     for row in table:
         print(f"  {row['name']:<10} {row['ms']:.4f} ms  device "
               f"{row['device_ms']} ms  bound {row['bound_ms']:.4f} ms "

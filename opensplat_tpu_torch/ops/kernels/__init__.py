@@ -5,6 +5,8 @@ its plain PyTorch version and launch counter:
   raster.rasterize_forward ............. tile compositing, forward
   raster.rasterize_backward ............ tile replay, per-record gradients
   segsum.segment_sum ................... per-Gaussian gradient sums
+  ssim.ssim_forward, ssim.ssim_backward  SSIM and its gradient in the
+                                         rendered image (11-tap stencil)
   raster_variants.rasterize_variant .... the forward with pieces ablated
                                          (the ablation bench's kernel)
 """

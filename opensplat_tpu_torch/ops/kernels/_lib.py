@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("errors.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
-           "segsum.cu", "raster_fwd_variants.cu")
+           "segsum.cu", "raster_fwd_variants.cu", "ssim.cu")
 HEADERS = ("common.cuh",)
 LIB_NAME = "libopensplat_kernels.so"
 NVCC_FLAGS = (
@@ -128,6 +128,12 @@ _SIGNATURES = {
                        + [ctypes.c_int] + [ctypes.c_void_p] * 4
                        + [ctypes.c_int] + [ctypes.c_void_p] * 3,
                        ctypes.c_int),
+    "osk_ssim_fwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
+                     ctypes.c_int),
+    "osk_ssim_bwd": ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 4
+                     + [ctypes.c_float] + [ctypes.c_void_p] * 2,
+                     ctypes.c_int),
+    "osk_ssim_info": ([ctypes.c_void_p], ctypes.c_int),
 }
 
 

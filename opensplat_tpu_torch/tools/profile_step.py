@@ -17,8 +17,8 @@ its share of the unprofiled wall, the top 40
 CUDA kernels by device time (summed by name stem: ms a step, share,
 launches the trace recorded; the trace can miss launches in
 back-to-back loops, so the count is printed), and SSIM's device time
-alone at the image's size (forward and backward of ops/ssim.py, which
-the step's GEMM rows do not name). BENCH_CPU=1 profiles the CPU instead:
+alone at the image's size (forward and backward of ops/ssim.py).
+BENCH_CPU=1 profiles the CPU instead:
 the table is then CPU op time, not device time.
 """
 from __future__ import annotations

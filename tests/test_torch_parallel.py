@@ -421,6 +421,7 @@ def _dp_trainer_rank(data, out, steps, cfg_kw):
     cfg = TrainConfig(**cfg_kw)
     st = init_model(d["pts"], d["rgb"], 1, capacity=64, capacity_round=64,
                     device="cpu")
+    st.params.scales[:d["ds"].shape[0]] += torch.from_numpy(d["ds"])
     tr = DPTrainer(st, cams, cfg, device="cpu")
     losses, alive, refines = [], {}, {}
     for step in range(1, steps + 1):
@@ -435,14 +436,15 @@ def _dp_trainer_rank(data, out, steps, cfg_kw):
              refines=repr(refines), **arrs, **alive)
 
 
-def test_dp_trainer_two_ranks_matches_one_rank(tmp_path):
+def _dp_trainer_matches(tmp_path, ds, steps):
     """DPTrainer on 2 gloo ranks against DPTrainer on one process with
-    d_local = 2 from the same state, 11 steps through the step-5 alpha
-    reset and the step-10 densify."""
+    d_local = 2, `steps` steps from the same state: init_model's with
+    ds added to the 40 live rows' log-scales. Returns the refines'
+    metrics by step."""
     pts, rgb, c2w, imgs = _trainer_scene()
     data = str(tmp_path / "in.npz")
-    np.savez(data, pts=pts, rgb=rgb, c2w=c2w, imgs=imgs, h=H, w=W, f=F)
-    run_function(_dp_trainer_rank, 2, data, str(tmp_path), TRAINER_STEPS,
+    np.savez(data, pts=pts, rgb=rgb, c2w=c2w, imgs=imgs, h=H, w=W, f=F, ds=ds)
+    run_function(_dp_trainer_rank, 2, data, str(tmp_path), steps,
                  TRAINER_CFG, env=RANK_ENV, timeout=180)
     r0, r1 = (np.load(tmp_path / f"rank{r}.npz") for r in (0, 1))
     for k in r0.files:
@@ -455,12 +457,12 @@ def test_dp_trainer_two_ranks_matches_one_rank(tmp_path):
         cam.set_image(img)
         cams.append(cam)
     cfg = TrainConfig(**TRAINER_CFG)
-    tr = DPTrainer(init_model(pts, rgb, 1, capacity=64, capacity_round=64,
-                              device="cpu"), cams, cfg, d_local=2,
-                   device="cpu")
+    st = init_model(pts, rgb, 1, capacity=64, capacity_round=64, device="cpu")
+    st.params.scales[:ds.shape[0]] += torch.from_numpy(ds)
+    tr = DPTrainer(st, cams, cfg, d_local=2, device="cpu")
     assert tr.d_total == 2
     refines = {}
-    for step in range(1, TRAINER_STEPS + 1):
+    for step in range(1, steps + 1):
         loss = tr.run_step(step).loss
         np.testing.assert_allclose(r0["losses"][step - 1], loss, rtol=5e-4)
         if tr.refine_metrics is not None:
@@ -470,11 +472,35 @@ def test_dp_trainer_two_ranks_matches_one_rank(tmp_path):
             np.testing.assert_array_equal(r0[f"alive_{step}"],
                                           tr.state.alive.numpy())
     assert repr(refines) == str(r0["refines"])
-    assert refines[10]["n_splits"] + refines[10]["n_dups"] > 0
     for k in PARAM_NAMES:
         np.testing.assert_allclose(r0[f"p_{k}"], getattr(tr.state.params, k),
                                    rtol=5e-3, atol=5e-5, err_msg=k)
     assert np.isfinite(r0["losses"]).all()
+    return refines
+
+
+def test_dp_trainer_two_ranks_matches_one_rank(tmp_path):
+    """From init_model's own isotropic start, as every training run
+    begins: 9 steps through the step-5 alpha reset, up to the step-10
+    densify. (With isotropic scales the quats' gradients are rounding
+    noise, which Adam turns into steps of up to the learning rate, and
+    the densify's split offsets carry that noise into the children's
+    means; the two DP paths sum the views' gradients in different
+    orders, so past the densify their means would agree only by rounding
+    luck. The next test goes through it.)"""
+    refines = _dp_trainer_matches(tmp_path, np.zeros((40, 3), np.float32),
+                                  TRAINER_STEPS - 2)
+    assert 5 in refines
+
+
+def test_dp_trainer_two_ranks_matches_one_rank_through_densify(tmp_path):
+    """11 steps through the step-5 alpha reset and the step-10 densify,
+    from scales made anisotropic as in tests/test_torch_train_step.py, so
+    that rotations carry real gradients."""
+    ds = np.random.default_rng(1).uniform(-0.5, 0.5, (40, 3)
+                                          ).astype(np.float32)
+    refines = _dp_trainer_matches(tmp_path, ds, TRAINER_STEPS)
+    assert refines[10]["n_splits"] + refines[10]["n_dups"] > 0
 
 
 def test_run_ranks_stops_every_rank_on_a_failure_or_the_limit():

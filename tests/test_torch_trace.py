@@ -15,7 +15,6 @@ import torch
 
 from opensplat_tpu_torch.config import TrainConfig
 from opensplat_tpu_torch.models.gaussians import init_model
-from opensplat_tpu_torch.ops.ssim import _blur_mats
 from opensplat_tpu_torch.parallel.multi_scene import MultiSceneTrainer
 from opensplat_tpu_torch.train import Trainer
 from opensplat_tpu_torch.utils import metrics
@@ -82,9 +81,7 @@ def _scene(seed, n_cams, calls):
 
 
 def _trainer(cls, *args):
-    """A trainer over `args` on the CPU, SSIM's blur matrices at the
-    image size already made (their upload is once a process)."""
-    _blur_mats(H, W, torch.device("cpu"))
+    """A trainer over `args` on the CPU."""
     return cls(*args, CFG, device="cpu")
 
 
