@@ -34,9 +34,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.metrics import host_sync, span
+from ..utils.metrics import count, host_sync, span
 from .kernels.expand import expand
-from .projection import BLOCK_X, BLOCK_Y, ProjectedGaussians
+from .projection import BLOCK_X, BLOCK_Y, ProjectedGaussians, take_in_front
 from .rasterize import ALPHA_THRESH
 
 
@@ -90,12 +90,24 @@ def _bin(proj, height, width, opacities) -> BinnedGaussians:
     views = proj.num_tiles_hit.shape[0] if batched else 1
     per_view = proj.num_tiles_hit.shape[-1]
     cnt = proj.num_tiles_hit.reshape(-1).to(torch.int32).contiguous()
-    cum = torch.cumsum(cnt.long(), 0)
+    rows = cnt.numel()
+    # the candidates' cumsum, then the projection's rows in front of the
+    # clip plane, side by side: one read takes the total and that count
+    head = torch.empty(rows + 1, dtype=torch.int64, device=dev)
+    cum = torch.cumsum(cnt.long(), 0, out=head[:rows])
+    in_front = take_in_front(cnt)
+    last = rows
+    if in_front is not None:
+        torch.sum(in_front.reshape(-1), 0, out=head[rows])
+        last += 1
     total = 0
-    if cnt.numel():
+    if rows:
         with host_sync("stream_total", dev):  # the one host read per call
-            total = int(cum[-1])
-    if total >= 2**31 or cnt.numel() >= 2**31:
+            read = head[rows - 1:last].tolist()
+        total = read[0]
+        if in_front is not None:
+            count("project.clipped", rows - read[1])
+    if total >= 2**31 or rows >= 2**31:
         raise ValueError(
             f"bin_gaussians: {total} candidate rows of {cnt.numel()} "
             f"Gaussians; the stream and the Gaussians of all views must "

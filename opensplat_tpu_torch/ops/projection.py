@@ -9,6 +9,15 @@ conic and 3-sigma radius, NDC -> pixel centre, and the per-Gaussian tile
 bounding box (opacity-aware when `opacities` is given). Elementwise over
 the Gaussian axis; gradients come from torch autograd, as the JAX package
 takes them from jax.grad.
+
+A row in the clip slab (|z| < clip_thresh) is culled and evaluated at
+depth 1, as the benchmark's reference does and as gsplat's kernel skips
+it: its outputs stay finite and its gradient is 0. The JAX package
+clamps |z| only to 1e-8, where the 2D covariance overflows float32; the
+two differ on such rows alone. Counters (utils/metrics.py):
+`project.rows`, the rows projected (views x Gaussians), and
+`project.clipped`, the rows behind the clip plane (z <= clip_thresh),
+counted by the binning of the projection (`take_in_front`).
 """
 from __future__ import annotations
 
@@ -16,7 +25,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..utils.metrics import host_sync
+from ..utils.metrics import count, host_sync
 from .tensor_math import quat_to_rotmat
 from .views import per_view
 
@@ -35,6 +44,26 @@ class ProjectedGaussians(NamedTuple):
     tile_min: torch.Tensor  # (N, 2) int32 inclusive (x, y)
     tile_max: torch.Tensor  # (N, 2) int32 exclusive (x, y)
     mask: torch.Tensor  # (N,) bool visibility
+
+
+# The last projection's rows in front of the clip plane (z > clip_thresh),
+# on the device, until the binning of that projection takes them
+# (`take_in_front`).
+_in_front: Optional[torch.Tensor] = None
+
+
+def take_in_front(like: torch.Tensor) -> Optional[torch.Tensor]:
+    """The last projection's (V, N) in-front mask, handed over once, if
+    it projected as many rows as `like` has elements, on its device;
+    else None. Binning counts the rest as `project.clipped` in its one
+    host read, so a projection that nothing bins has its clipped rows
+    counted by no one."""
+    global _in_front
+    front, _in_front = _in_front, None
+    if (front is None or front.numel() != like.numel()
+            or front.device != like.device):
+        return None
+    return front
 
 
 def project_gaussians(
@@ -119,7 +148,11 @@ def _project_views(means, scales, glob_scale, quats, viewmat, projmat, fx,
     fov_h = fov_height if fov_height is not None else img_height
     lim_x = col(1.3 * (0.5 * fov_w / f) for f in fx)
     lim_y = col(1.3 * (0.5 * fov_h / f) for f in fy)
-    z_safe = torch.where(z.abs() < 1e-8, torch.full_like(z, 1e-8), z)
+    # a row in the clip slab is culled; its terms are evaluated at depth
+    # 1, so that they stay finite and its gradient is 0 (near depth 0 the
+    # 2D covariance's a * c overflows float32 and the conic turns NaN)
+    slab = z.abs() < clip_thresh
+    z_safe = torch.where(slab, 1.0, z)
     tx = z * torch.clamp(p_view[..., 0] / z_safe, -lim_x, lim_x)
     ty = z * torch.clamp(p_view[..., 1] / z_safe, -lim_y, lim_y)
     rz = 1.0 / z_safe
@@ -164,7 +197,7 @@ def _project_views(means, scales, glob_scale, quats, viewmat, projmat, fx,
 
     p_hom = per_view(lambda m, pm: m @ pm[:, :3].T + pm[:, 3], views,
                      means, projmat)
-    w_hom = p_hom[..., 3]
+    w_hom = torch.where(slab, 1.0, p_hom[..., 3])
     rw = 1.0 / (w_hom + 1e-6)
     p_proj = p_hom[..., :3] * rw[..., None]
     if row_offset is None:
@@ -214,12 +247,16 @@ def _project_views(means, scales, glob_scale, quats, viewmat, projmat, fx,
             q0, q1, q2, q3 = tile_bbox(radius_d)
             vis_area = (q1 - q0) * (q3 - q2)
 
-        mask = (z > clip_thresh) & det_ok & (vis_area > 0)
+        front = z > clip_thresh
+        mask = front & det_ok & (vis_area > 0)
         if valid_mask is not None:
             mask = mask & valid_mask
         radii = torch.where(mask, radius_d.to(torch.int32), 0).to(torch.int32)
         num_tiles_hit = torch.where(mask, tile_area, 0).to(torch.int32)
 
+    global _in_front
+    _in_front = front
+    count("project.rows", z.numel())
     return ProjectedGaussians(
         xys=xys,
         depths=z,

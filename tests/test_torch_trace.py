@@ -5,8 +5,9 @@ Trainer step and a 2-scene MultiSceneTrainer step each record the
 step's span tree once a call; the host syncs are counted by site (a
 demand step adds its 3 reads) on a CUDA device alone, so the CPU's are
 counted here as if they were a card's; the GT cache's hits and misses
-match the cameras' get_image calls. 32 x 32 px, 64 Gaussians a
-scene."""
+match the cameras' get_image calls; the projection's rows and the rows
+behind its clip plane are counted, the latter in the stream total's
+read. 32 x 32 px, 64 Gaussians a scene."""
 import threading
 from collections import Counter
 
@@ -242,3 +243,45 @@ def test_multi_scene_step_tree_and_syncs(monkeypatch):
     assert _tree(spans) == _want(2, 0)
     assert _by_site(added) == _syncs(2, False)
     assert added["gt.hits"] == 2 and calls[0] == 4
+
+
+# camera depths of a hand-built scene's rows (identity pose: depth is
+# minus world z): behind the clip plane (depth <= 0.01) 4 behind the
+# camera, 3 in its plane, 2 in the slab in front, 1 on the plane itself;
+# the rest in front
+DEPTHS = [-2.0, -1.0, -0.5, -0.01, 0.0, 0.0, 0.0, 0.005, 0.009, 0.01,
+          0.011, 0.02]
+BEHIND = sum(d <= 0.01 for d in DEPTHS)
+
+
+def _depth_scene(seed, calls):
+    """_scene's 60 points moved 3-6 in front of an identity camera, and
+    rows 0-11 at DEPTHS; one camera."""
+    state, cams = _scene(seed, 1, calls)
+    rng = np.random.default_rng(seed)
+    means = state.params.means
+    means[:, 2] = torch.from_numpy(rng.uniform(-6, -3, 64).astype(np.float32))
+    means[:len(DEPTHS), 2] = -torch.tensor(DEPTHS)
+    cams[0].cam_to_world = np.eye(4, dtype=np.float32)
+    return state, cams
+
+
+def test_projection_counts_rows_and_rows_behind_the_clip_plane(monkeypatch):
+    # the one-view step, then two scenes in one batched step (V = 2):
+    # every row of every view projected, the rows behind the plane of
+    # each view summed; the read that takes them is the stream total's,
+    # so a step makes the same host syncs by site as before the count
+    _count_cpu(monkeypatch)
+    calls = [0]
+    tr = _trainer(Trainer, *_depth_scene(0, calls))
+    _, added = _step(tr, 11)
+    assert added["project.rows"] == 64
+    assert added["project.clipped"] == BEHIND
+    assert _by_site(added) == dict(_syncs(1, False), gt_upload=1)
+    scenes = [_depth_scene(s, calls) for s in (1, 2)]
+    tr = _trainer(MultiSceneTrainer, [s for s, _ in scenes],
+                  [c for _, c in scenes])
+    _, added = _step(tr, 11)
+    assert added["project.rows"] == 2 * 64
+    assert added["project.clipped"] == 2 * BEHIND
+    assert _by_site(added) == dict(_syncs(2, False), gt_upload=2)
