@@ -133,9 +133,9 @@ Phases (any failure raises and the script exits non-zero):
      and segsum on the views' batch equals one launch a view bitwise,
      each counter advances by one per batched call, and the batched
      kernels agree with their batched plain versions at phase 4's
-     tolerances; (b) 20 steps of multi_scene_train_step (S = 2, 4)
-     against S train_step_impl calls, losses and states bitwise, and 20
-     batched_train_steps (D = 2) against the loop formulation kept in
+     tolerances; (b) 20 steps of train_step_impl on S stacked scenes
+     (S = 2, 4) against S single calls, losses and states bitwise, and
+     20 batched_train_steps (D = 2) against the loop formulation kept in
      the phase (loss rtol 1e-5, params rtol 2e-4 atol 1e-5), each
      kernel launched once a step; (c) host-clock scene-steps/s of the
      batched step beside S single steps, launches a step (the kernels;
@@ -2168,7 +2168,7 @@ def step_anatomy(fn, device):
 
 
 def multi_scene_steps(scenes, n_steps, sh_deg, cfg):
-    """n_steps of multi_scene_train_step over the S scenes against S
+    """n_steps of train_step_impl on the S stacked scenes against S
     train_step_impl calls on clones, each scene seeing camera step % 3:
     every step's losses and the final states equal to the bit. Returns
     (the batched steps' launches, the single steps' launches, host
@@ -2176,8 +2176,8 @@ def multi_scene_steps(scenes, n_steps, sh_deg, cfg):
     step_anatomy of one batched step and of S single steps)."""
     import torch
 
-    from opensplat_tpu_torch.parallel.multi_scene import (
-        multi_scene_train_step, stack_states, unstack_states)
+    from opensplat_tpu_torch.parallel.multi_scene import (stack_states,
+                                                          unstack_states)
     from opensplat_tpu_torch.train import train_step_impl
 
     s = len(scenes)
@@ -2216,7 +2216,7 @@ def multi_scene_steps(scenes, n_steps, sh_deg, cfg):
 
     def batched(step):
         cams, c2w, gts = views(step)
-        return lambda: multi_scene_train_step(
+        return lambda: train_step_impl(
             stacked, c2w, [c.fx for c in cams], [c.fy for c in cams],
             [c.cx for c in cams], [c.cy for c in cams], gts, cfg.lr_means,
             size, size, sh_deg, cfg, True)
@@ -2392,9 +2392,9 @@ def batched_phase(n_points, size, n_steps, smi, device="cuda"):
     """Phase 11: the batched multi-view step at the headline width
     (n_points Gaussians, size px, SH degree 3, bench.py's scene with
     seeds 0-3). (a) For S = 2 and S = 4 scenes and for D = 2 cameras on
-    one state: check_batched_kernels. (b) n_steps of
-    multi_scene_train_step (S = 2, 4) against S train_step_impl calls,
-    bitwise (multi_scene_steps), each kernel launched once a step and
+    one state: check_batched_kernels. (b) n_steps of train_step_impl
+    on S stacked scenes (S = 2, 4) against S single calls, bitwise
+    (multi_scene_steps), each kernel launched once a step and
     each SSIM entry S times; n_steps batched_train_steps (D = 2,
     anisotropic scales so that the quats carry real gradients) against
     the loop formulation (camera_batch_steps), each kernel launched once

@@ -22,9 +22,9 @@ backend and whether the ranks share a card:
   BENCH_MP=M             Gaussian sharding over M ranks (gs_train_step);
   BENCH_DP=D BENCH_MP=M  the hybrid on a D x M grid (dpgs_train_step);
   BENCH_SCENES=S         S scenes a step in one process, one batched
-                         step (multi_scene_train_step: one launch of
-                         each kernel for all scenes, as the JAX bench's
-                         vmap);
+                         step (train_step_impl on the stacked states:
+                         one launch of each kernel for all scenes, as
+                         the JAX bench's vmap);
   BENCH_SCENES_SHARDED=1 the S scenes over S ranks
                          (sharded_multi_scene_step).
 
@@ -350,9 +350,10 @@ def _rank_main(dp, mp, scenes, n_points, h, renderer, n_iters):
 
 def run_scenes(s: int, n_points: int, h: int, renderer: str, dev,
                n_iters: int) -> dict:
-    """S scenes a step in this process: multi_scene_train_step, one
+    """S scenes a step in this process: train_step_impl, one
     batched step over the stacked scenes (the JAX bench's s{S}-vmap)."""
-    from .parallel.multi_scene import multi_scene_train_step, stack_states
+    from .parallel.multi_scene import stack_states
+    from .train import train_step_impl
 
     cfg, lr = _config(n_points)
     rng = np.random.default_rng(0)
@@ -362,8 +363,8 @@ def run_scenes(s: int, n_points: int, h: int, renderer: str, dev,
     c2ws, gts = _cameras(s, h, rng)
     c2ws, gts = torch.from_numpy(c2ws).to(dev), torch.from_numpy(gts).to(dev)
     f, c = [0.9 * h] * s, [h / 2.0] * s
-    step = lambda st: multi_scene_train_step(st, c2ws, f, f, c, c, gts, lr,
-                                             h, h, 3, cfg, True, renderer)
+    step = lambda st: train_step_impl(st, c2ws, f, f, c, c, gts, lr, h, h,
+                                      3, cfg, True, renderer)
     _, m, dt = timed_window(step, stack_states(states), n_iters, dev)
     rate = n_iters * s / dt
     rec = _line(f"scene_steps_per_sec[{renderer},{n_points}g,{h}px,s{s}-vmap]",

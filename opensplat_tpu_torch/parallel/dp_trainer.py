@@ -13,19 +13,18 @@ Densify statistics reproduce D sequential reference steps
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..config import TrainConfig
 from ..models.gaussians import PARAM_NAMES, DensifyStats, TrainState
-from ..optim.adam import adam_update, means_lr_schedule
-from ..train import (StepOutcome, Trainer, get_downscale_factor,
-                     learning_rates, sh_degrees_for_step)
+from ..ops.ssim import psnr
+from ..train import Trainer, render_views, step_core
 from .distributed import process_camera_slice
 from .mesh import Mesh, make_mesh, replicate
-from .sharded_train import render_batch_grads
+from .sharded_train import batch_demand, batch_loss
 
 
 @torch.no_grad()
@@ -61,6 +60,13 @@ def _fold_stats_dp(stats: DensifyStats, g_xys_local: torch.Tensor,
     )
 
 
+def sum_over_data(g_params: dict, mesh: Mesh) -> dict:
+    """THE collective of DP: the parameter gradients summed over `data`,
+    in one all_reduce."""
+    summed = mesh.psum_many([g_params[k] for k in PARAM_NAMES], "data")
+    return dict(zip(PARAM_NAMES, summed))
+
+
 def dp_train_step(state: TrainState, cam_to_world: torch.Tensor,
                   fx: Sequence[float], fy: Sequence[float],
                   cx: Sequence[float], cy: Sequence[float],
@@ -75,27 +81,25 @@ def dp_train_step(state: TrainState, cam_to_world: torch.Tensor,
     pairs over the batch), n_alive, demand (3,) int64 (the maximum over
     ranks), all equal on every rank."""
     d_total = mesh.shape["data"] * len(fx)
-    loss_part, g_params, g_xys, radii, psnr_l, demand = render_batch_grads(
-        state, cam_to_world, fx, fy, cx, cy, gt_images, height, width,
-        sh_deg, cfg, renderer, d_total)
-    # THE collective of DP: one gradient all_reduce over `data`
-    summed = mesh.psum_many([g_params[k] for k in PARAM_NAMES], "data")
-    g_params = dict(zip(PARAM_NAMES, summed))
-    loss, psnr_sum = mesh.psum(torch.stack([loss_part, psnr_l.sum()]), "data")
-    n_visible = mesh.psum((radii > 0).sum(), "data")
-    adam_update(state.params.as_dict(), g_params, state.opt,
-                learning_rates(cfg, means_lr), state.alive)
-    if accumulate:
-        state.stats = _fold_stats_dp(state.stats, g_xys, radii, height,
-                                     width, d_total, mesh)
-    metrics = {
-        "loss": loss,
-        "psnr": psnr_sum / d_total,
-        "n_visible": n_visible,
-        "n_alive": state.alive.sum(),
-        "demand": mesh.pmax(demand, "data"),
-    }
-    return state, metrics
+
+    def report(out, loss_part):
+        loss, psnr_sum = mesh.psum(torch.stack(
+            [loss_part, psnr(out.rgb, gt_images).sum()]), "data")
+        return {
+            "loss": loss,
+            "psnr": psnr_sum / d_total,
+            "n_visible": mesh.psum((out.radii > 0).sum(), "data"),
+            "n_alive": state.alive.sum(),
+            "demand": mesh.pmax(batch_demand(out), "data"),
+        }
+    return state, step_core(
+        state, render_views(state, cam_to_world, fx, fy, cx, cy, height,
+                            width, sh_deg, renderer),
+        gt_images, cfg, means_lr,
+        partial(_fold_stats_dp, height=height, width=width, d_total=d_total,
+                mesh=mesh) if accumulate else None, report,
+        views=(len(fx),), reduce=batch_loss(d_total),
+        sum_grads=partial(sum_over_data, mesh=mesh))
 
 
 class DPTrainer(Trainer):
@@ -125,28 +129,12 @@ class DPTrainer(Trainer):
         self.d_total = self.n_data * d_local
         # every rank starts from rank 0's state, so the replicas agree
         self.state = replicate(self.mesh, self.state)
+        self._train_step = partial(dp_train_step, mesh=self.mesh)
 
-    def run_step(self, step: int) -> StepOutcome:
-        cfg = self.cfg
-        factor = get_downscale_factor(step, cfg)
-        (h, w), batch = self._sample_batch(factor)
-        self.last_hw = (h, w)
-        start, count = process_camera_slice(self.d_total, self.mesh)
-        mine = batch[start:start + count]
-        cams = [c for c, _ in mine]
-        c2w = torch.as_tensor(
-            np.stack([np.asarray(c.cam_to_world, np.float32) for c in cams]),
-            device=self.device)
-        self.state, metrics = dp_train_step(
-            self.state, c2w, [c.fx / factor for c in cams],
-            [c.fy / factor for c in cams], [c.cx / factor for c in cams],
-            [c.cy / factor for c in cams],
-            torch.stack([g for _, g in mine]),
-            means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
-                              cfg.num_iters, step - 1),
-            self.mesh, h, w, sh_degrees_for_step(step, cfg), cfg,
-            accumulate=step < cfg.stop_split_at, renderer=self.renderer)
-        self._note_demand(step, (h, w), metrics["demand"])
-        if step % cfg.refine_every == 0 and step > cfg.warmup_length:
-            self._refine(step)
-        return StepOutcome(metrics)
+    def _draw(self, factor: int):
+        """This rank's d_local cameras of the step's batch and their GT,
+        stacked (d_local, H, W, 3)."""
+        _, batch = self._sample_batch(factor)
+        start, n = process_camera_slice(self.d_total, self.mesh)
+        mine = batch[start:start + n]
+        return [c for c, _ in mine], torch.stack([g for _, g in mine])

@@ -46,23 +46,21 @@ of lcm(capacity_round, M) so that shards stay equal.
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from functools import partial
+from typing import List, NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ..config import TrainConfig
 from ..models.densify import accumulate_stats
-from ..models.gaussians import (PARAM_NAMES, GaussianParams, TrainState,
-                                grow_capacity, round_capacity, state_map)
-from ..models.splat_model import DEFAULT_BACKGROUND, render_forward
+from ..models.gaussians import (GaussianParams, TrainState, grow_capacity,
+                                round_capacity, state_map)
+from ..models.splat_model import render_forward
 from ..ops.camera import camera_matrices
 from ..ops.projection import project_gaussians
-from ..ops.ssim import main_loss, psnr
-from ..optim.adam import adam_update, means_lr_schedule
-from ..train import (StepOutcome, Trainer, get_downscale_factor, leaf_grads,
-                     learning_rates, sh_degrees_for_step)
-from .dp_trainer import _fold_stats_dp
+from ..ops.ssim import psnr
+from ..train import Trainer, background, step_core
+from .dp_trainer import _fold_stats_dp, sum_over_data
 from .mesh import (Mesh, all_gather_replicated, all_gather_rows, make_mesh,
                    replicate, shard_params)
 
@@ -159,33 +157,32 @@ def gs_render(state: TrainState, cam_to_world: torch.Tensor, fx: float,
     band, _, v, demand = _gs_render_core(
         state.params, state.alive,
         torch.zeros((state.alive.shape[0], 2), device=dev), cam_to_world,
-        fx, fy, cx, cy, height, width, sh_deg,
-        torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32, device=dev),
-        renderer, mesh)
+        fx, fy, cx, cy, height, width, sh_deg, background(dev), renderer,
+        mesh)
     return mesh.all_gather(band, "model")[:height], v, demand
 
 
-def _gs_grads(state: TrainState, cam_to_world, fx, fy, cx, cy, gt_image,
-              mesh: Mesh, height: int, width: int, sh_deg: int,
-              cfg: TrainConfig, renderer: str, d_total: int):
-    """The band render of one camera and the shard's gradients of
-    loss / d_total. Returns (loss / d_total, the parameter gradients by
-    name, the shard's xys gradients (C/M, 2), its radii, the whole image,
-    V, demand)."""
-    dev = state.device
-    leaves = {k: v.detach().requires_grad_(True)
-              for k, v in state.params.as_dict().items()}
-    shift = torch.zeros((state.alive.shape[0], 2), dtype=torch.float32,
-                        device=dev, requires_grad=True)
-    band, radii, v, demand = _gs_render_core(
-        GaussianParams(**leaves), state.alive, shift, cam_to_world, fx, fy,
-        cx, cy, height, width, sh_deg,
-        torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32, device=dev),
-        renderer, mesh)
-    rgb = all_gather_replicated(band, mesh, "model")[:height]
-    loss = main_loss(rgb, gt_image, cfg.ssim_weight) / d_total
-    g_params, g_xys = leaf_grads(loss, leaves, shift)
-    return loss.detach(), g_params, g_xys, radii, rgb.detach(), v, demand
+class _Frame(NamedTuple):
+    """The banded render as step_core sees it: the whole image (in the
+    graph, on every rank of the row), the shard's radii, V and demand."""
+    rgb: torch.Tensor
+    radii: torch.Tensor
+    visible: int
+    demand: torch.Tensor
+
+
+def _band_render(state: TrainState, cam_to_world, fx, fy, cx, cy,
+                 height: int, width: int, sh_deg: int, renderer: str,
+                 mesh: Mesh):
+    """step_core's render on the Gaussian-sharded state: this rank's
+    band of one camera, the bands gathered into the whole image."""
+    def render(params, shift, bg):
+        band, radii, v, demand = _gs_render_core(
+            params, state.alive, shift, cam_to_world, fx, fy, cx, cy, height,
+            width, sh_deg, bg, renderer, mesh)
+        return _Frame(all_gather_replicated(band, mesh, "model")[:height],
+                      radii, v, demand)
+    return render
 
 
 def gs_train_step(state: TrainState, cam_to_world: torch.Tensor, fx: float,
@@ -199,25 +196,24 @@ def gs_train_step(state: TrainState, cam_to_world: torch.Tensor, fx: float,
     the mesh calls it with the same camera. Metrics, equal on every
     rank: loss, psnr, n_visible, n_alive (whole model), max_shard_visible
     (V) and demand (4,) int64 [n_cands, n_isects, n_grads, V]."""
-    loss, g_params, g_xys, radii, rgb, v, demand = _gs_grads(
-        state, cam_to_world, fx, fy, cx, cy, gt_image, mesh, height, width,
-        sh_deg, cfg, renderer, 1)
-    adam_update(state.params.as_dict(), g_params, state.opt,
-                learning_rates(cfg, means_lr), state.alive)
-    if accumulate:
-        state.stats = accumulate_stats(state.stats, g_xys, radii, height,
-                                       width)
-    n_visible, n_alive = mesh.psum(torch.stack(
-        [(radii > 0).sum(), state.alive.sum()]), "model")
-    metrics = {
-        "loss": loss,
-        "psnr": psnr(rgb, gt_image),
-        "n_visible": n_visible,
-        "n_alive": n_alive,
-        "max_shard_visible": v,
-        "demand": torch.cat([demand, demand.new_tensor([v])]),
-    }
-    return state, metrics
+    def report(out, loss):
+        n_visible, n_alive = mesh.psum(torch.stack(
+            [(out.radii > 0).sum(), state.alive.sum()]), "model")
+        return {
+            "loss": loss,
+            "psnr": psnr(out.rgb, gt_image),
+            "n_visible": n_visible,
+            "n_alive": n_alive,
+            "max_shard_visible": out.visible,
+            "demand": torch.cat([out.demand,
+                                 out.demand.new_tensor([out.visible])]),
+        }
+    return state, step_core(
+        state, _band_render(state, cam_to_world, fx, fy, cx, cy, height,
+                            width, sh_deg, renderer, mesh),
+        gt_image, cfg, means_lr,
+        partial(accumulate_stats, height=height, width=width)
+        if accumulate else None, report)
 
 
 def dpgs_train_step(state: TrainState, cam_to_world: torch.Tensor,
@@ -234,31 +230,34 @@ def dpgs_train_step(state: TrainState, cam_to_world: torch.Tensor,
     metrics as gs_train_step's, over the whole batch (loss and psnr the
     means, n_visible the Gaussians visible to any camera)."""
     d_total = mesh.shape["data"]
-    loss_part, g_params, g_xys, radii, rgb, v, demand = _gs_grads(
-        state, cam_to_world, fx, fy, cx, cy, gt_image, mesh, height, width,
-        sh_deg, cfg, renderer, d_total)
-    summed = mesh.psum_many([g_params[k] for k in PARAM_NAMES], "data")
-    g_params = dict(zip(PARAM_NAMES, summed))
-    loss, psnr_sum = mesh.psum(torch.stack([loss_part, psnr(rgb, gt_image)]),
-                               "data")
-    adam_update(state.params.as_dict(), g_params, state.opt,
-                learning_rates(cfg, means_lr), state.alive)
-    if accumulate:
-        state.stats = _fold_stats_dp(state.stats, g_xys[None], radii[None],
-                                     height, width, d_total, mesh)
-    seen = mesh.pmax((radii > 0).to(torch.int64), "data")
-    n_visible, n_alive = mesh.psum(torch.stack(
-        [seen.sum(), state.alive.sum()]), "model")
-    demand4 = mesh.pmax(torch.cat([demand, demand.new_tensor([v])]), "data")
-    metrics = {
-        "loss": loss,
-        "psnr": psnr_sum / d_total,
-        "n_visible": n_visible,
-        "n_alive": n_alive,
-        "max_shard_visible": demand4[3],
-        "demand": demand4,
-    }
-    return state, metrics
+
+    def fold(stats, g_xys, radii):
+        return _fold_stats_dp(stats, g_xys[None], radii[None], height, width,
+                              d_total, mesh)
+
+    def report(out, loss_part):
+        loss, psnr_sum = mesh.psum(torch.stack(
+            [loss_part, psnr(out.rgb, gt_image)]), "data")
+        seen = mesh.pmax((out.radii > 0).to(torch.int64), "data")
+        n_visible, n_alive = mesh.psum(torch.stack(
+            [seen.sum(), state.alive.sum()]), "model")
+        demand4 = mesh.pmax(torch.cat([out.demand,
+                                       out.demand.new_tensor([out.visible])]),
+                            "data")
+        return {
+            "loss": loss,
+            "psnr": psnr_sum / d_total,
+            "n_visible": n_visible,
+            "n_alive": n_alive,
+            "max_shard_visible": demand4[3],
+            "demand": demand4,
+        }
+    return state, step_core(
+        state, _band_render(state, cam_to_world, fx, fy, cx, cy, height,
+                            width, sh_deg, renderer, mesh),
+        gt_image, cfg, means_lr, fold if accumulate else None, report,
+        reduce=lambda loss: loss / d_total,
+        sum_grads=partial(sum_over_data, mesh=mesh))
 
 
 class GSTrainer(Trainer):
@@ -292,6 +291,8 @@ class GSTrainer(Trainer):
                 state, round_capacity(cap + 1, self._capacity_rounding()))
         # every rank starts from rank 0's state, then keeps its shard
         self.state = shard_state(mesh, replicate(mesh, state))
+        self._train_step = partial(
+            dpgs_train_step if self.n_data > 1 else gs_train_step, mesh=mesh)
 
     def _capacity_rounding(self) -> int:
         return math.lcm(self.cfg.capacity_round, self.n_model)
@@ -299,34 +300,13 @@ class GSTrainer(Trainer):
     def full_state(self) -> TrainState:
         return unshard_state(self.mesh, self.state)
 
-    def run_step(self, step: int) -> StepOutcome:
-        cfg = self.cfg
-        factor = get_downscale_factor(step, cfg)
-        if self.n_data > 1:
-            _, batch = self._sample_batch(factor)
-            cam, gt = batch[self.mesh.index["data"]]
-            step_fn = dpgs_train_step
-        else:
-            cam_idx = self.sampler.next()
-            cam, gt = self.cameras[cam_idx], self._gt_on_device(cam_idx,
-                                                                factor)
-            step_fn = gs_train_step
-        h, w = int(gt.shape[0]), int(gt.shape[1])
-        self.last_hw = (h, w)
-        self.state, metrics = step_fn(
-            self.state,
-            torch.as_tensor(np.asarray(cam.cam_to_world, np.float32),
-                            device=self.device),
-            cam.fx / factor, cam.fy / factor, cam.cx / factor,
-            cam.cy / factor, gt,
-            means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
-                              cfg.num_iters, step - 1),
-            self.mesh, h, w, sh_degrees_for_step(step, cfg), cfg,
-            accumulate=step < cfg.stop_split_at, renderer=self.renderer)
-        self._note_demand(step, (h, w), metrics["demand"][:3])
-        if step % cfg.refine_every == 0 and step > cfg.warmup_length:
-            self._refine(step)
-        return StepOutcome(metrics)
+    def _draw(self, factor: int):
+        """With n_data > 1 this rank's data row's camera of the step's
+        batch, else Trainer's draw."""
+        if self.n_data == 1:
+            return super()._draw(factor)
+        _, batch = self._sample_batch(factor)
+        return batch[self.mesh.index["data"]]
 
     def _refine(self, step: int):
         """Trainer._refine on the gathered state, run alike on every rank,
@@ -335,16 +315,8 @@ class GSTrainer(Trainer):
         super()._refine(step)
         self.state = shard_state(self.mesh, self.state)
 
-    def render(self, cam, step: int) -> torch.Tensor:
-        """gs_render at the step's resolution and SH degree; every rank
-        of the data row calls it and gets the whole image."""
-        factor = get_downscale_factor(step, self.cfg)
-        rgb, _, _ = gs_render(
-            self.state,
-            torch.as_tensor(np.asarray(cam.cam_to_world, np.float32),
-                            device=self.device),
-            cam.fx / factor, cam.fy / factor, cam.cx / factor,
-            cam.cy / factor, self.mesh, int(cam.height / factor),
-            int(cam.width / factor), sh_degrees_for_step(step, self.cfg),
-            self.renderer)
-        return rgb
+    def _render(self, cam_to_world, fx, fy, cx, cy, height, width, sh_deg):
+        """gs_render: every rank of the data row calls it and gets the
+        whole image."""
+        return gs_render(self.state, cam_to_world, fx, fy, cx, cy, self.mesh,
+                         height, width, sh_deg, self.renderer)[0]

@@ -11,18 +11,15 @@ independent, so a step has no collective beyond gathering the metrics.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from ..config import TrainConfig
 from ..models.gaussians import (TrainState, grow_capacity, round_capacity,
                                 state_map)
-from ..optim.adam import means_lr_schedule
-from ..train import (StepOutcome, Trainer, get_downscale_factor,
-                     sh_degrees_for_step, train_step_impl)
-from ..utils.metrics import count, host_sync, span
+from ..train import StepOutcome, Trainer, train_step_impl
 from .mesh import Mesh
 
 _FLOAT_METRICS = ("loss", "psnr")
@@ -42,32 +39,16 @@ def unstack_states(stacked: TrainState, n: int) -> List[TrainState]:
     return [state_map(lambda x, i=i: x[i], stacked) for i in range(n)]
 
 
-def multi_scene_train_step(states: TrainState, cam_to_world: torch.Tensor,
-                           fx, fy, cx, cy, gt_images: torch.Tensor,
-                           means_lr: float, height: int, width: int,
-                           sh_deg: int, cfg: TrainConfig, accumulate: bool,
-                           renderer: str = "fast"):
-    """One step of each of S scenes: states stacked (S, ...), one camera
-    per scene (cam_to_world (S, 4, 4), intrinsics S floats each,
-    gt_images (S, H, W, 3)). Returns (the stacked state, metrics stacked
-    per scene: loss, psnr (S,) and the train step's counters). The
-    state's parameters, moments and stats are updated in place, as
-    train_step_impl updates its state; the scenes go through one batched
-    step (train_step_impl on the stacked state)."""
-    return train_step_impl(states, cam_to_world, fx, fy, cx, cy, gt_images,
-                           means_lr, height, width, sh_deg, cfg, accumulate,
-                           renderer)
-
-
 def sharded_multi_scene_step(states: TrainState, cam_to_world, fx, fy, cx,
                              cy, gt_images, means_lr: float, mesh: Mesh,
                              height: int, width: int, sh_deg: int,
                              cfg: TrainConfig, accumulate: bool,
                              renderer: str = "fast"):
-    """multi_scene_train_step on this rank's block of scenes; the metrics
-    come back gathered over the `data` ranks, in scene order, so every
-    rank sees all S scenes'. Every rank of the mesh calls it together."""
-    states, m = multi_scene_train_step(
+    """train_step_impl on this rank's block of scenes (stacked); the
+    metrics come back gathered over the `data` ranks, in scene order, so
+    every rank sees all S scenes'. Every rank of the mesh calls it
+    together."""
+    states, m = train_step_impl(
         states, cam_to_world, fx, fy, cx, cy, gt_images, means_lr, height,
         width, sh_deg, cfg, accumulate, renderer)
     floats = mesh.all_gather(torch.stack([m[k].to(torch.float32) for k in
@@ -85,11 +66,12 @@ class MultiSceneTrainer:
 
     One child Trainer per scene supplies the host machinery (its camera
     sampler in the reshuffle-per-epoch order, the GT cache, the refine
-    and reset schedule, capacity growth) while the step runs on the
-    stacked state: multi_scene_train_step, or sharded_multi_scene_step
-    when a mesh is given. With a mesh, `states` and `cameras_per_scene`
-    are this rank's block of the S scenes (S / n_data of them, data
-    index d holding scenes [d S/n_data, (d+1) S/n_data)). At each refine
+    and reset schedule, capacity growth) while Trainer's host loop
+    (run_step) steps the stacked state: train_step_impl, or
+    sharded_multi_scene_step when a mesh is given. With a mesh, `states`
+    and `cameras_per_scene` are this rank's block of the S scenes
+    (S / n_data of them, data index d holding scenes
+    [d S/n_data, (d+1) S/n_data)). At each refine
     boundary the stack is split, every child refines exactly as a
     standalone run would (its own camera count feeds the reference's
     reset-interval guard, model.cpp:341), the capacities are aligned to
@@ -114,11 +96,12 @@ class MultiSceneTrainer:
         self.device = self.children[0].device
         self.refine_metrics = None
         self.last_hw = (0, 0)
-        self.demand: dict = {}
+        self._train_step = (train_step_impl if mesh is None else
+                            partial(sharded_multi_scene_step, mesh=mesh))
         self._align_and_stack([c.state for c in self.children])
 
-    # the fleet's demand, kept as Trainer keeps its own
-    _note_demand = Trainer._note_demand
+    # Trainer's host loop, over the draw, step, outcome and refine below
+    run_step = Trainer.run_step
 
     def _align_and_stack(self, states: List[TrainState]):
         cap = max(s.alive.shape[0] for s in states)
@@ -130,58 +113,26 @@ class MultiSceneTrainer:
             grow_capacity(s, cap) if s.alive.shape[0] != cap else s
             for s in states])
 
-    def run_step(self, step: int) -> StepOutcome:
-        count("trainer.steps")
-        count("trainer.scene_steps", self.n_local)
-        with span("trainer.run_step"):
-            metrics = self._step(step)
+    def _draw(self, factor: int):
+        """One camera from each scene's sampler, and the GT stacked."""
+        cams, gts = [], []
+        for ch in self.children:
+            idx = ch.sampler.next()
+            cams.append(ch.cameras[idx])
+            gts.append(ch._gt_on_device(idx, factor))
+        shapes = {tuple(g.shape) for g in gts}
+        if len(shapes) != 1:
+            raise ValueError(f"multi-scene batch needs equal image sizes "
+                             f"at factor {factor}, got {sorted(shapes)}")
+        return cams, torch.stack(gts)
+
+    def _outcome(self, metrics: dict) -> StepOutcome:
         out = dict(metrics)
         out["loss"] = metrics["loss"].mean()
         out["psnr"] = metrics["psnr"].mean()
         out["n_alive"] = metrics["n_alive"].sum()
         out["loss_per_scene"] = metrics["loss"]
         return StepOutcome(out)
-
-    def _step(self, step: int) -> dict:
-        cfg = self.cfg
-        factor = get_downscale_factor(step, cfg)
-        with span("trainer.gt"):
-            cams, gts = [], []
-            for ch in self.children:
-                idx = ch.sampler.next()
-                cams.append(ch.cameras[idx])
-                gts.append(ch._gt_on_device(idx, factor))
-            shapes = {tuple(g.shape) for g in gts}
-            if len(shapes) != 1:
-                raise ValueError(f"multi-scene batch needs equal image sizes "
-                                 f"at factor {factor}, got {sorted(shapes)}")
-            with host_sync("pose", self.device):
-                poses = torch.as_tensor(
-                    np.stack([np.asarray(c.cam_to_world, np.float32)
-                              for c in cams]), device=self.device)
-        h, w = int(gts[0].shape[0]), int(gts[0].shape[1])
-        self.last_hw = (h, w)
-        args = (
-            self.state, poses,
-            [c.fx / factor for c in cams], [c.fy / factor for c in cams],
-            [c.cx / factor for c in cams], [c.cy / factor for c in cams],
-            torch.stack(gts),
-            means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
-                              cfg.num_iters, step - 1))
-        kw = dict(height=h, width=w, sh_deg=sh_degrees_for_step(step, cfg),
-                  cfg=cfg, accumulate=step < cfg.stop_split_at,
-                  renderer=self.renderer)
-        if self.mesh is not None:
-            self.state, metrics = sharded_multi_scene_step(
-                *args, mesh=self.mesh, **kw)
-        else:
-            self.state, metrics = multi_scene_train_step(*args, **kw)
-        self._note_demand(step, (h, w), [metrics[k].max() for k in
-                                         ("n_cands", "n_isects", "n_grads")])
-        if step % cfg.refine_every == 0 and step > cfg.warmup_length:
-            with span("trainer.refine"):
-                self._refine(step)
-        return metrics
 
     def _refine(self, step: int):
         refine = []

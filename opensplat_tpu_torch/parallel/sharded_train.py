@@ -14,16 +14,15 @@ launch of each kernel serves all D. Semantics, as in the JAX package:
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Sequence
 
 import torch
 
 from ..config import TrainConfig
-from ..models.gaussians import DensifyStats, GaussianParams, TrainState
-from ..models.splat_model import DEFAULT_BACKGROUND, render_forward
-from ..ops.ssim import main_loss, psnr
-from ..optim.adam import adam_update
-from ..train import leaf_grads, learning_rates
+from ..models.gaussians import DensifyStats, TrainState
+from ..ops.ssim import psnr
+from ..train import render_views, step_core
 
 
 @torch.no_grad()
@@ -55,41 +54,22 @@ def accumulate_stats_batched(stats: DensifyStats, g_xys_b: torch.Tensor,
     )
 
 
-def render_batch_grads(state: TrainState, cam_to_world: torch.Tensor,
-                       fx: Sequence[float], fy: Sequence[float],
-                       cx: Sequence[float], cy: Sequence[float],
-                       gt_images: torch.Tensor, height: int, width: int,
-                       sh_deg: int, cfg: TrainConfig, renderer: str,
-                       d_total: int):
-    """Render the cameras of this device in one autograd graph and take
-    the gradients of sum(losses) / d_total. Returns (that loss, the
-    parameter gradients by name, the per-camera xys gradients (D, C, 2),
-    radii (D, C), per-camera PSNR (D,), demand (3,) int64 = the largest
-    [n_cands, n_isects, n_grads] over the cameras)."""
-    dev = state.device
-    capacity = state.alive.shape[0]
-    background = torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32,
-                              device=dev)
-    leaves = {k: v.detach().requires_grad_(True)
-              for k, v in state.params.as_dict().items()}
-    d = len(fx)
-    shifts = torch.zeros((d, capacity, 2), dtype=torch.float32, device=dev,
-                         requires_grad=True)
-    out = render_forward(
-        GaussianParams(**leaves), state.alive, cam_to_world, fx, fy, cx, cy,
-        height, width, sh_deg, background, xys_shift=shifts,
-        renderer=renderer, device=dev)
-    loss = 0.0
-    for view_loss in main_loss(out.rgb, gt_images, cfg.ssim_weight):
-        loss = loss + view_loss
-    loss = loss / d_total
-    g_params, g_shifts = leaf_grads(loss, leaves, shifts)
-    with torch.no_grad():
-        psnrs = psnr(out.rgb, gt_images)
-        demand = torch.stack([t.to(torch.int64) for t in
-                              (out.n_cands, out.n_isects, out.n_grads)], 1)
-    return (loss.detach(), g_params, g_shifts, out.radii, psnrs,
-            demand.amax(0))
+def batch_loss(d_total: int):
+    """step_core's reduce for a camera batch: the views' losses summed in
+    view order and divided by d_total, the cameras of the whole step."""
+    def reduce(losses):
+        loss = 0.0
+        for view_loss in losses:
+            loss = loss + view_loss
+        return loss / d_total
+    return reduce
+
+
+def batch_demand(out) -> torch.Tensor:
+    """(3,) int64: the largest [n_cands, n_isects, n_grads] over the
+    views of a batch's render outputs."""
+    return torch.stack([t.to(torch.int64) for t in
+                        (out.n_cands, out.n_isects, out.n_grads)], 1).amax(0)
 
 
 def batched_train_step(state: TrainState, cam_to_world: torch.Tensor,
@@ -104,19 +84,18 @@ def batched_train_step(state: TrainState, cam_to_world: torch.Tensor,
     psnr (the mean), n_visible (visible (camera, Gaussian) pairs),
     n_alive and demand (3,)."""
     d = len(fx)
-    loss, g_params, g_xys, radii, psnr_b, demand = render_batch_grads(
-        state, cam_to_world, fx, fy, cx, cy, gt_images, height, width,
-        sh_deg, cfg, renderer, d)
-    adam_update(state.params.as_dict(), g_params, state.opt,
-                learning_rates(cfg, means_lr), state.alive)
-    if accumulate:
-        state.stats = accumulate_stats_batched(state.stats, g_xys, radii,
-                                               height, width)
-    metrics = {
-        "loss": loss,
-        "psnr": psnr_b.mean(),
-        "n_visible": (radii > 0).sum(),
-        "n_alive": state.alive.sum(),
-        "demand": demand,
-    }
-    return state, metrics
+
+    def report(out, loss):
+        return {
+            "loss": loss,
+            "psnr": psnr(out.rgb, gt_images).mean(),
+            "n_visible": (out.radii > 0).sum(),
+            "n_alive": state.alive.sum(),
+            "demand": batch_demand(out),
+        }
+    return state, step_core(
+        state, render_views(state, cam_to_world, fx, fy, cx, cy, height,
+                            width, sh_deg, renderer),
+        gt_images, cfg, means_lr,
+        partial(accumulate_stats_batched, height=height, width=width)
+        if accumulate else None, report, views=(d,), reduce=batch_loss(d))

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List, Optional
+from functools import partial
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +65,67 @@ def leaf_grads(loss: torch.Tensor, leaves: dict, shift: torch.Tensor):
             for k, g in zip(PARAM_NAMES, grads[:-1])}, grads[-1]
 
 
+def background(device) -> torch.Tensor:
+    """DEFAULT_BACKGROUND on `device`, in one blocking upload."""
+    with host_sync("background", device):
+        return torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32,
+                            device=device)
+
+
+def render_views(state: TrainState, cam_to_world: torch.Tensor, fx, fy, cx,
+                 cy, height: int, width: int, sh_deg: int, renderer: str):
+    """step_core's render of the step's views over `state`'s Gaussians:
+    (params, xys shift, background) -> render_forward's outputs."""
+    def render(params, shift, bg):
+        return render_forward(
+            params, state.alive, cam_to_world, fx, fy, cx, cy, height, width,
+            sh_deg, bg, xys_shift=shift, renderer=renderer,
+            device=state.device)
+    return render
+
+
+def step_core(state: TrainState, render, gt_image: torch.Tensor,
+              cfg: TrainConfig, means_lr: float, fold, report, views=(),
+              reduce=None, sum_grads=None):
+    """The body every training step shares. Renders the parameter groups
+    as leaves (`render(params, xys_shift, background)`, an output with
+    .rgb and .radii), takes main_loss against `gt_image`, optionally
+    `reduce`d (a camera batch's sum and scale), and the gradients of its
+    sum; `sum_grads` may combine the parameter gradients over ranks
+    before the masked Adam update; `fold(stats, g_xys, radii)`, unless
+    None, gives the new densify statistics. `views` are the leading axes
+    of the cameras that share the state's Gaussians, each with its own
+    xys shift. Updates `state` in place and returns report(outputs,
+    loss), taken without gradients."""
+    with span("step"):
+        dev = state.device
+        bg = background(dev)
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in state.params.as_dict().items()}
+        xys_shift = torch.zeros(tuple(views) + state.alive.shape + (2,),
+                                dtype=torch.float32, device=dev,
+                                requires_grad=True)
+        with span("step.render"):
+            out = render(GaussianParams(**leaves), xys_shift, bg)
+        with span("step.loss"):
+            loss = main_loss(out.rgb, gt_image, cfg.ssim_weight)
+            if reduce is not None:
+                loss = reduce(loss)
+        with span("step.backward"):
+            g_params, g_xys = leaf_grads(loss.sum() if loss.dim() else loss,
+                                         leaves, xys_shift)
+        if sum_grads is not None:
+            g_params = sum_grads(g_params)
+        with span("step.adam"):
+            adam_update(state.params.as_dict(), g_params, state.opt,
+                        learning_rates(cfg, means_lr), state.alive)
+        with span("step.stats"):
+            if fold is not None:
+                state.stats = fold(state.stats, g_xys, out.radii)
+            with torch.no_grad():
+                return report(out, loss.detach())
+
+
 def train_step_impl(
     state: TrainState,
     cam_to_world: torch.Tensor,
@@ -92,45 +154,22 @@ def train_step_impl(
     kernel launches once, the stream is sorted and sized once (one host
     read) and Adam updates once for all scenes; each scene's loss and
     state are the bits of its own step."""
-    with span("step"):
-        dev = state.device
-        views = cam_to_world.shape[0] if cam_to_world.dim() == 3 else None
-        with host_sync("background", dev):
-            background = torch.tensor(DEFAULT_BACKGROUND,
-                                      dtype=torch.float32, device=dev)
-        leaves = {k: v.detach().requires_grad_(True)
-                  for k, v in state.params.as_dict().items()}
-        xys_shift = torch.zeros(state.alive.shape + (2,),
-                                dtype=torch.float32, device=dev,
-                                requires_grad=True)
-        with span("step.render"):
-            out = render_forward(
-                GaussianParams(**leaves), state.alive, cam_to_world, fx, fy,
-                cx, cy, height, width, sh_deg, background,
-                xys_shift=xys_shift, renderer=renderer, device=dev)
-        with span("step.loss"):
-            loss = main_loss(out.rgb, gt_image, cfg.ssim_weight)
-        with span("step.backward"):
-            g_params, g_xys = leaf_grads(
-                loss if views is None else loss.sum(), leaves, xys_shift)
-        with span("step.adam"):
-            adam_update(state.params.as_dict(), g_params, state.opt,
-                        learning_rates(cfg, means_lr), state.alive)
-        with span("step.stats"):
-            if accumulate:  # step < stop_split_at, host-known
-                state.stats = accumulate_stats(state.stats, g_xys, out.radii,
-                                               height, width)
-            with torch.no_grad():
-                metrics = {
-                    "loss": loss.detach(),
-                    "psnr": psnr(out.rgb.detach(), gt_image),
-                    "n_visible": out.mask.sum(-1),
-                    "n_isects": out.n_isects,
-                    "n_cands": out.n_cands,
-                    "n_grads": out.n_grads,
-                    "n_alive": state.alive.sum(-1),
-                }
-    return state, metrics
+    def report(out, loss):
+        return {
+            "loss": loss,
+            "psnr": psnr(out.rgb, gt_image),
+            "n_visible": out.mask.sum(-1),
+            "n_isects": out.n_isects,
+            "n_cands": out.n_cands,
+            "n_grads": out.n_grads,
+            "n_alive": state.alive.sum(-1),
+        }
+    return state, step_core(
+        state, render_views(state, cam_to_world, fx, fy, cx, cy, height,
+                            width, sh_deg, renderer),
+        gt_image, cfg, means_lr,
+        partial(accumulate_stats, height=height, width=width)
+        if accumulate else None, report)
 
 
 def train_step(state: TrainState, *args, device="cuda", **kwargs):
@@ -182,6 +221,43 @@ def refine_generator(seed: int, step: int, device) -> torch.Generator:
         ((seed & 0xFFFFFFFF) << 32) | (step & 0xFFFFFFFF))
 
 
+class StepPlan(NamedTuple):
+    """What a step's number sets: the image downscale factor, the means
+    learning rate, the SH degree, and whether the densify statistics
+    fold (step < stop_split_at)."""
+    factor: int
+    means_lr: float
+    sh_deg: int
+    accumulate: bool
+
+
+def step_plan(step: int, cfg: TrainConfig) -> StepPlan:
+    """The schedules at `step` (the reference's scheduler steps after the
+    optimizer, hence lr(step - 1))."""
+    return StepPlan(get_downscale_factor(step, cfg),
+                    means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
+                                      cfg.num_iters, step - 1),
+                    sh_degrees_for_step(step, cfg), step < cfg.stop_split_at)
+
+
+def stage_cameras(cams, factor: int, device):
+    """Drawn cameras for a step or a render on `device`: (cam_to_world,
+    fx, fy, cx, cy) with the intrinsics divided by `factor`. The poses go
+    up in one blocking upload. One camera gives a (4, 4) pose and
+    numbers; a list of V cameras gives (V, 4, 4) and lists."""
+    keys = ("fx", "fy", "cx", "cy")
+    if isinstance(cams, list):
+        pose = np.stack([np.asarray(c.cam_to_world, np.float32)
+                         for c in cams])
+        intrinsics = [[getattr(c, k) / factor for c in cams] for k in keys]
+    else:
+        pose = np.asarray(cams.cam_to_world, np.float32)
+        intrinsics = [getattr(cams, k) / factor for k in keys]
+    with host_sync("pose", device):
+        pose = torch.as_tensor(pose, device=device)
+    return (pose, *intrinsics)
+
+
 @dataclass
 class StepOutcome:
     """The step's metrics as device tensors; reading a property syncs,
@@ -204,11 +280,13 @@ class StepOutcome:
 
 class Trainer:
     """Host-side orchestration: camera sampling, resolution and SH
-    schedules, the ground-truth cache, the demand counters, refine
-    dispatch and capacity growth.
+    schedules, the ground-truth cache, refine dispatch and capacity
+    growth.
 
     `cameras` are objects with cam_to_world (4x4), fx, fy, cx, cy, width,
     height and get_image(factor) -> (H, W, 3) float image in [0, 1]."""
+
+    n_local = 1  # scenes a step of this process trains
 
     def __init__(self, state: TrainState, cameras: List, cfg: TrainConfig,
                  renderer: str = "fast", device="cuda"):
@@ -224,9 +302,8 @@ class Trainer:
         self.d_total = 1  # cameras per step (the DP trainers raise this)
         self.last_hw = (0, 0)  # the last step's render size (refine's maxwh)
         self.refine_metrics: Optional[dict] = None
-        # largest [n_cands, n_isects, n_grads] seen per resolution; the
-        # streams are sized exactly each step, so demand never overflows
-        self.demand: dict = {}
+        # (state, cameras..., gt, means_lr, **the rest) -> (state, metrics)
+        self._train_step = train_step_impl
         self._gt_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
         self._gt_cache_used = 0
         self._gt_cache_budget = max(0, int(cfg.gt_cache_mb)) * (1 << 20)
@@ -286,46 +363,37 @@ class Trainer:
         return self.state
 
     def run_step(self, step: int) -> StepOutcome:
+        """One step of the host loop, which every trainer runs: the step's
+        plan, this process's draw and its staging, the step function, and
+        the refine at a refine boundary. A trainer differs in _draw,
+        _train_step, _outcome and _refine."""
         count("trainer.steps")
-        count("trainer.scene_steps")
+        count("trainer.scene_steps", self.n_local)
+        cfg = self.cfg
         with span("trainer.run_step"):
-            cfg = self.cfg
+            plan = step_plan(step, cfg)
             with span("trainer.gt"):
-                cam_idx = self.sampler.next()
-                cam = self.cameras[cam_idx]
-                factor = get_downscale_factor(step, cfg)
-                gt = self._gt_on_device(cam_idx, factor)
-                with host_sync("pose", self.device):
-                    pose = torch.as_tensor(
-                        np.asarray(cam.cam_to_world, np.float32),
-                        device=self.device)
-            h, w = int(gt.shape[0]), int(gt.shape[1])
+                cams, gt = self._draw(plan.factor)
+                views = stage_cameras(cams, plan.factor, self.device)
+            h, w = int(gt.shape[-3]), int(gt.shape[-2])
             self.last_hw = (h, w)
-            means_lr = means_lr_schedule(cfg.lr_means, cfg.lr_means_final,
-                                         cfg.num_iters, step - 1)
-            self.state, metrics = train_step_impl(
-                self.state, pose, cam.fx / factor, cam.fy / factor,
-                cam.cx / factor, cam.cy / factor, gt, means_lr, h, w,
-                sh_degrees_for_step(step, cfg), cfg,
-                accumulate=step < cfg.stop_split_at, renderer=self.renderer,
-            )
-            self._note_demand(step, (h, w), [
-                metrics[k] for k in ("n_cands", "n_isects", "n_grads")])
+            self.state, metrics = self._train_step(
+                self.state, *views, gt, plan.means_lr, height=h, width=w,
+                sh_deg=plan.sh_deg, cfg=cfg, accumulate=plan.accumulate,
+                renderer=self.renderer)
             if step % cfg.refine_every == 0 and step > cfg.warmup_length:
                 with span("trainer.refine"):
                     self._refine(step)
-        return StepOutcome(metrics)
+        return self._outcome(metrics)
 
-    def _note_demand(self, step: int, hw: tuple, demand) -> None:
-        """Keep the largest [n_cands, n_isects, n_grads] per resolution.
-        `demand` is read (a sync) at the JAX Trainer's cadence: warm-up
-        steps, every 10th step, refine boundaries."""
-        if step <= 3 or step % 10 == 0 or step % self.cfg.refine_every == 0:
-            with span("trainer.demand"), host_sync(
-                    "demand", self.device, len(demand)):
-                d = [int(v) for v in demand]
-            prev = self.demand.get(hw, [0, 0, 0])
-            self.demand[hw] = [max(a, b) for a, b in zip(prev, d)]
+    def _draw(self, factor: int):
+        """The step's camera(s) for this process and their GT on the
+        device: one camera from the sampler."""
+        cam_idx = self.sampler.next()
+        return self.cameras[cam_idx], self._gt_on_device(cam_idx, factor)
+
+    def _outcome(self, metrics: dict) -> StepOutcome:
+        return StepOutcome(metrics)
 
     def _refine(self, step: int):
         """The refine of model.cpp:339-494 at a refine boundary: grow
@@ -368,16 +436,16 @@ class Trainer:
         Trainer re-renders once when a frame overflowed its static
         intersection budget; the port sizes every stream exactly, so there
         is nothing to overflow and one render is the answer."""
-        factor = get_downscale_factor(step, self.cfg)
-        rgb, _, _ = render_image(
-            self.state.params, self.state.alive,
-            torch.as_tensor(np.asarray(cam.cam_to_world, np.float32),
-                            device=self.device),
-            cam.fx / factor, cam.fy / factor, cam.cx / factor,
-            cam.cy / factor, int(cam.height / factor), int(cam.width / factor),
-            sh_degrees_for_step(step, self.cfg), self.renderer,
-            device=self.device)
-        return rgb
+        plan = step_plan(step, self.cfg)
+        return self._render(
+            *stage_cameras(cam, plan.factor, self.device),
+            int(cam.height / plan.factor), int(cam.width / plan.factor),
+            plan.sh_deg)
+
+    def _render(self, cam_to_world, fx, fy, cx, cy, height, width, sh_deg):
+        return render_image(self.state.params, self.state.alive,
+                            cam_to_world, fx, fy, cx, cy, height, width,
+                            sh_deg, self.renderer, device=self.device)[0]
 
 
 @torch.no_grad()
@@ -390,6 +458,5 @@ def render_image(params: GaussianParams, alive: torch.Tensor,
     dev = resolve_device(device)
     out = render_forward(
         params, alive, cam_to_world, fx, fy, cx, cy, height, width, sh_deg,
-        torch.tensor(DEFAULT_BACKGROUND, dtype=torch.float32, device=dev),
-        renderer=renderer, device=dev)
+        background(dev), renderer=renderer, device=dev)
     return out.rgb, out.n_cands, out.n_isects

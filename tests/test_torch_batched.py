@@ -10,8 +10,8 @@ final T and final_idx, the backward's rows (at the view's candidate
 offset) and the segment sums. Against the JAX package (2 scenes of
 tests/test_multi_scene.py: 32x32 px, SH 1, 64 Gaussians at capacity
 128, scales made anisotropic as in tests/test_torch_train_step.py,
-states from state_from_numpy): multi_scene_train_step against the
-JAX vmapped step on its float32 tiled renderer (loss rtol 1e-5,
+states from state_from_numpy): train_step_impl on the stacked states
+against the JAX vmapped step on its float32 tiled renderer (loss rtol 1e-5,
 parameters rtol 2e-4 atol 5e-6, as tests/test_multi_scene.py), and
 against the JAX vmapped renderer "pallas" in interpret mode (per-scene
 loss rtol 1e-3; the batched render's images atol 4e-3, the JAX Pallas
@@ -39,8 +39,8 @@ from opensplat_tpu_torch.ops.kernels import expand, raster, segsum
 from opensplat_tpu_torch.ops.projection import (ProjectedGaussians,
                                                 project_gaussians)
 from opensplat_tpu_torch.ops.sh import spherical_harmonics
-from opensplat_tpu_torch.parallel.multi_scene import (multi_scene_train_step,
-                                                      stack_states)
+from opensplat_tpu_torch.parallel.multi_scene import stack_states
+from opensplat_tpu_torch.train import train_step_impl
 
 # one intra-op thread per process: the suite runs one pytest-xdist
 # worker per core, and a full torch thread pool in each of them
@@ -212,7 +212,7 @@ def _steps(renderer):
         jstack(jstates), jnp.asarray(cams), jnp.asarray(f), jnp.asarray(f),
         jnp.asarray(c), jnp.asarray(c), jnp.asarray(gts), LR, H, W, 1, CFG,
         True, renderer)
-    tnew, tm = multi_scene_train_step(
+    tnew, tm = train_step_impl(
         tstate, torch.from_numpy(cams), f, f, c, c, torch.from_numpy(gts),
         LR, H, W, 1, TrainConfig(num_iters=100, capacity_round=CAP), True)
     assert tm["loss"].shape == (s,)

@@ -3,7 +3,7 @@ multi_scene_cli) on the CPU.
 
 The port's scene step is train_step_impl on each scene in turn, so the
 multi-scene paths are held to independent runs exactly: one
-multi_scene_train_step of two scenes against two train_step_impl calls
+train_step_impl of two stacked scenes against two train_step_impl calls
 (tensors equal); MultiSceneTrainer with two scenes of unequal capacity
 (aligned to the larger) and camera counts against two Trainers over 9
 steps through an alpha reset and a densify (losses equal, alive masks and
@@ -25,7 +25,6 @@ from opensplat_tpu_torch.models.gaussians import (PARAM_NAMES, init_model,
                                                   state_map)
 from opensplat_tpu_torch.parallel.launch import run_ranks
 from opensplat_tpu_torch.parallel.multi_scene import (MultiSceneTrainer,
-                                                      multi_scene_train_step,
                                                       stack_states,
                                                       unstack_states)
 from opensplat_tpu_torch.tools.make_synthetic_project import make_project
@@ -69,7 +68,7 @@ def test_multi_scene_step_matches_independent_steps():
     rng = np.random.default_rng(1)
     c2w = np.stack([_look_at((0.3 * i, 0.4, 4.0)) for i in range(2)])
     gts = rng.uniform(0, 1, (2, H, W, 3)).astype(np.float32)
-    new, m = multi_scene_train_step(
+    new, m = train_step_impl(
         stack_states(states), torch.from_numpy(c2w), [F] * 2, [F] * 2,
         [W / 2] * 2, [H / 2] * 2, torch.from_numpy(gts), LR, H, W, 1,
         TrainConfig(), True)

@@ -2,9 +2,10 @@
 host_sync, tracing) on the CPU: off, a span is the shared no-op and
 records nothing while counters count; on, spans nest by thread. A tiny
 Trainer step and a 2-scene MultiSceneTrainer step each record the
-step's span tree once a call; the host syncs are counted by site (a
-demand step adds its 3 reads) on a CUDA device alone, so the CPU's are
-counted here as if they were a card's; the GT cache's hits and misses
+step's span tree once a call, and the camera-DP and Gaussian-shard
+trainers the same host loop and step spans; the host syncs are counted
+by site (every step the same sites) on a CUDA device alone, so the
+CPU's are counted here as if they were a card's; the GT cache's hits and misses
 match the cameras' get_image calls; the projection's rows and the rows
 behind its clip plane are counted, the latter in the stream total's
 read. 32 x 32 px, 64 Gaussians a scene."""
@@ -12,10 +13,13 @@ import threading
 from collections import Counter
 
 import numpy as np
+import pytest
 import torch
 
 from opensplat_tpu_torch.config import TrainConfig
 from opensplat_tpu_torch.models.gaussians import init_model
+from opensplat_tpu_torch.parallel.dp_trainer import DPTrainer
+from opensplat_tpu_torch.parallel.gaussian_shard import GSTrainer
 from opensplat_tpu_torch.parallel.multi_scene import MultiSceneTrainer
 from opensplat_tpu_torch.train import Trainer
 from opensplat_tpu_torch.utils import metrics
@@ -128,17 +132,14 @@ def _tree(spans):
                     else None) for s in spans)
 
 
-def _syncs(views, demand):
+def _syncs(views):
     """host_syncs by site of one step of `views` scenes with the
     GT cached: the pose upload, the background, six of each view's
     camera matrices (three uploads, three numbers written into the
-    projection matrix), six per-view columns of the projection, the
-    stream total, and on a demand step its three reads."""
-    out = {"pose": 1, "background": 1, "camera": 6 * views,
-           "view_cols": 6, "stream_total": 1}
-    if demand:
-        out["demand"] = 3
-    return out
+    projection matrix), six per-view columns of the projection and the
+    stream total."""
+    return {"pose": 1, "background": 1, "camera": 6 * views,
+            "view_cols": 6, "stream_total": 1}
 
 
 def _by_site(added):
@@ -203,13 +204,11 @@ def test_trainer_step_tree_syncs_and_gt_counts(monkeypatch):
     before = metrics.counts()
     spans, added = _step(tr, 11)  # a first draw: the GT misses
     assert _tree(spans) == _want(1, 1)
-    assert _by_site(added) == dict(_syncs(1, False), gt_upload=1)
+    assert _by_site(added) == dict(_syncs(1), gt_upload=1)
     assert added["trainer.steps"] == added["trainer.scene_steps"] == 1
-    spans, added = _step(tr, 20)  # a demand step
-    tree = _tree(spans)
-    assert tree[("trainer.demand", "trainer.run_step")] == 1
-    assert tree[("sync.demand", "trainer.demand")] == 1
-    assert _by_site(added) == dict(_syncs(1, True), gt_upload=1)
+    spans, added = _step(tr, 20)  # a 10th step: a plain step's syncs
+    assert _tree(spans) == _want(1, 1)
+    assert _by_site(added) == dict(_syncs(1), gt_upload=1)
     monkeypatch.undo()  # the CPU's own: no host sync is counted
     mid = metrics.counts()
     for step in (21, 22, 23):  # the epoch's last draw, then hits
@@ -232,17 +231,43 @@ def test_multi_scene_step_tree_and_syncs(monkeypatch):
                   [c for _, c in scenes])
     spans, added = _step(tr, 11)
     assert _tree(spans) == _want(2, 2)
-    assert _by_site(added) == dict(_syncs(2, False), gt_upload=2)
+    assert _by_site(added) == dict(_syncs(2), gt_upload=2)
     assert added["trainer.steps"] == 1 and added["trainer.scene_steps"] == 2
     assert added["gt.misses"] == calls[0] == 2
-    spans, added = _step(tr, 30)
-    assert _tree(spans)[("sync.demand", "trainer.demand")] == 1
-    assert _by_site(added) == dict(_syncs(2, True), gt_upload=2)
+    spans, added = _step(tr, 30)  # a 10th step: a plain step's syncs
+    assert _tree(spans) == _want(2, 2)
+    assert _by_site(added) == dict(_syncs(2), gt_upload=2)
     assert added["gt.misses"] == 2 and "gt.hits" not in added
     spans, added = _step(tr, 31)  # a new epoch: both scenes hit
     assert _tree(spans) == _want(2, 0)
-    assert _by_site(added) == _syncs(2, False)
+    assert _by_site(added) == _syncs(2)
     assert added["gt.hits"] == 2 and calls[0] == 4
+
+
+@pytest.mark.parametrize("make", [
+    lambda state, cams: DPTrainer(state, cams, CFG, d_local=2,
+                                  device="cpu"),
+    lambda state, cams: GSTrainer(state, cams, CFG, n_model=1,
+                                  device="cpu"),
+], ids=["dp_1x1_d2", "gs_1x1"])
+def test_parallel_trainers_step_spans(make):
+    """The camera-DP and Gaussian-shard trainers (1 x 1 meshes, no
+    process group) run Trainer's host loop and the shared step: each
+    step span once under trainer.run_step, inside the step's."""
+    state, cams = _scene(3, 4, [0])
+    spans, added = _step(make(state, cams), 11)
+    tree = _tree(spans)
+    for pair in TREE[:4]:
+        assert tree[pair] == 1, pair
+    for name in ("step.render", "step.loss", "step.backward", "step.adam",
+                 "step.stats"):
+        assert tree[(name, "step")] == 1, name
+    by_name = {s.name: s for s in spans}
+    outer = by_name["step"]
+    assert all(outer.end_ns - outer.start_ns
+               > by_name[n].end_ns - by_name[n].start_ns
+               for n in ("step.render", "step.backward", "step.adam"))
+    assert added["trainer.steps"] == added["trainer.scene_steps"] == 1
 
 
 # camera depths of a hand-built scene's rows (identity pose: depth is
@@ -277,11 +302,11 @@ def test_projection_counts_rows_and_rows_behind_the_clip_plane(monkeypatch):
     _, added = _step(tr, 11)
     assert added["project.rows"] == 64
     assert added["project.clipped"] == BEHIND
-    assert _by_site(added) == dict(_syncs(1, False), gt_upload=1)
+    assert _by_site(added) == dict(_syncs(1), gt_upload=1)
     scenes = [_depth_scene(s, calls) for s in (1, 2)]
     tr = _trainer(MultiSceneTrainer, [s for s, _ in scenes],
                   [c for _, c in scenes])
     _, added = _step(tr, 11)
     assert added["project.rows"] == 2 * 64
     assert added["project.clipped"] == 2 * BEHIND
-    assert _by_site(added) == dict(_syncs(2, False), gt_upload=2)
+    assert _by_site(added) == dict(_syncs(2), gt_upload=2)

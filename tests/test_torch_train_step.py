@@ -171,10 +171,13 @@ def _trainer(**cfg_kw):
 
 def test_trainer_steps_and_demand():
     tr = _trainer(sh_degree_interval=1)
-    losses = [tr.run_step(s).loss for s in range(1, 6)]
+    outs = [tr.run_step(s) for s in range(1, 6)]
+    losses = [o.loss for o in outs]
     assert np.all(np.isfinite(losses))
     assert losses[-1] < losses[0]
-    (demand,) = tr.demand.values()
+    # the largest [n_cands, n_isects, n_grads] over the steps
+    demand = [max(int(o.metrics[k]) for o in outs)
+              for k in ("n_cands", "n_isects", "n_grads")]
     assert demand[0] >= demand[1] > 0 and demand[2] > 0
     assert int(tr.state.opt.count) == 5
     assert bool(tr.state.stats.initialized)
