@@ -155,6 +155,15 @@ Phases (any failure raises and the script exits non-zero):
      steps, dead rows kept; timed beside its bound and the plain
      version (adam_phase). Phases 3, 7, 9 and 11 require one Adam
      launch an adam_update.
+ 14. the projection kernel pair (csrc/project.cu) against the plain
+     version and its autograd at garden.steady's 5,803,008 rows, at
+     lego.scenes4's 4 stacked states of 303,104 rows, on one state under
+     4 cameras and on a band of rows (row_offset 448, fov_height), with
+     rows planted in the clip slab, behind the camera, past both FOV
+     limits and as lines of determinant 0; each view of a batch equal
+     to its own call bitwise; timed beside its bound and the plain
+     version (project_phase). Phase 3 requires one forward and one
+     backward launch a step.
 The line before the last is the {"kernels": [...]} table (with each
 training kernel's phase-7 launches as `cli_launches`, expand's and
 segsum's over phase 8's tiled Trainer steps as `tiled_launches`, rank
@@ -167,7 +176,9 @@ SSIM's, its `garden` the 1297 x 840 figures, and its `cli_launches`,
 `parallel_launches` and `batched_launches` the [forward, backward]
 launches of phases 7, 9 and 11, one a view; the `adam` row is phase
 13's at garden's size, its `lego` lego's figures, its launches those of
-phases 3, 7, 9 and 11); the last line
+phases 3, 7, 9 and 11; the `project` row is phase 14's at garden's
+size, its `lego` lego's figures, its launches phase 3's [forward,
+backward]); the last line
 is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
 """
@@ -215,7 +226,9 @@ KERNELS = {
 # each kernel's __global__ function, as the profiler names it
 KERNEL_FUNCS = {"expand": "expand_kernel", "raster_fwd": "raster_fwd_kernel",
                 "raster_bwd": "raster_bwd_kernel", "segsum": "segsum_kernel",
-                "kbench_fwd": "kbench_fwd_kernel", "adam": "adam_kernel"}
+                "kbench_fwd": "kbench_fwd_kernel", "adam": "adam_kernel",
+                "project_fwd": "project_fwd_kernel",
+                "project_bwd": "project_bwd_kernel"}
 
 
 class Camera:
@@ -2827,6 +2840,443 @@ def adam_phase(peak, device="cuda"):
     }
 
 
+# bytes a row of the projection kernel pair: the forward reads means,
+# scales, quats, opacity and the valid flag (45 B) and writes every
+# output (66 B); the backward reads means, scales and quats (40 B) and
+# the gradients of xys and conics (20 B) and writes those of means,
+# scales and quats (40 B)
+PROJECT_BYTES_FWD, PROJECT_BYTES_BWD = 111, 100
+PROJECT_FLOATS = ("xys", "depths", "cam_depths", "conics", "cov2d")
+PROJECT_INTS = ("radii", "num_tiles_hit", "tile_min", "tile_max", "mask")
+GARDEN_CAMERA = dict(w=1297, h=840, fx=1100.0, fy=1100.0, cx=648.5,
+                     cy=420.0)
+LEGO_CAMERA = dict(w=800, h=800, fx=1111.1, fy=1111.1, cx=400.0, cy=400.0)
+
+
+def project_pose(seed, device):
+    """A random camera-to-world pose: rotation from a unit quaternion,
+    origin within 2 of the world's."""
+    import torch
+
+    from opensplat_tpu_torch.ops.tensor_math import quat_to_rotmat
+
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(4, generator=gen)
+    c2w = torch.eye(4)
+    c2w[:3, :3] = quat_to_rotmat(q / torch.linalg.norm(q))
+    c2w[:3, 3] = 4.0 * torch.rand(3, generator=gen) - 2.0
+    return c2w.to(device)
+
+
+def project_rows(n, cam, c2w, seed, device):
+    """n Gaussians seen by camera `cam` at pose c2w, as the step hands
+    them to the projection (means, exp'd scales, unit quats, opacities,
+    the valid mask, a tenth dead): in camera space 70% in front (depth
+    0.5-40, inside the frame), 15% behind, 5% in or beside the clip slab
+    (|depth| < 0.02), 5% past the FOV limits on either side and 5% lines
+    of 1e4 x 1e-3 x 1e-3 whose 2D determinant can round to 0."""
+    import torch
+
+    from opensplat_tpu_torch.ops.camera import camera_matrices
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device=device)
+
+    z = u(0.5, 40.0, n)
+    k = [int(n * f) for f in (0.70, 0.85, 0.90, 0.95)]
+    z[k[0]:k[1]] = u(-40.0, -0.5, k[1] - k[0])
+    z[k[1]:k[2]] = u(-0.02, 0.02, k[2] - k[1])
+    xy = u(-0.6, 0.6, n, 2) * z.abs()[:, None]
+    xy[k[2]:k[3]] = u(1.0, 3.0, k[3] - k[2], 2) * z[k[2]:k[3], None].abs() \
+        * torch.where(torch.rand((k[3] - k[2], 2), generator=gen,
+                                 device=device) < 0.5, -1.0, 1.0)
+    perm = torch.randperm(n, generator=gen, device=device)
+    p = torch.cat([xy, z[:, None], torch.ones((n, 1), device=device)], 1)
+    viewmat, projmat, _ = camera_matrices(c2w, cam["fx"], cam["fy"],
+                                          cam["w"], cam["h"])
+    means = (torch.linalg.inv(viewmat.double()) @ p.double().T).T[:, :3]
+    scales = torch.exp(u(-5.0, -1.0, n, 3))
+    scales[k[3]:] = torch.tensor([1e4, 1e-3, 1e-3], device=device)
+    quats = torch.randn((n, 4), generator=gen, device=device)
+    quats = quats / torch.linalg.norm(quats, dim=-1, keepdim=True)
+    opac = torch.sigmoid(1.5 * torch.randn(n, generator=gen, device=device))
+    valid = torch.rand(n, generator=gen, device=device) > 0.1
+    degenerate = torch.zeros(n, dtype=torch.bool, device=device)
+    degenerate[k[3]:] = True
+    return (means.float()[perm].contiguous(), scales[perm].contiguous(),
+            quats[perm].contiguous(), opac[perm].contiguous(),
+            valid[perm].contiguous(), degenerate[perm], viewmat, projmat)
+
+
+def project_edges(proj, opac, clip, w, h):
+    """(V, N) rows whose plain outputs lie within float32 rounding (a
+    relative 2e-5) of a point where an integer output or a gradient's
+    branch flips: a tile edge of either bbox, the radius' or the
+    opacity bbox's ceil, the clip plane, s_max's sign, or det = 0."""
+    import torch
+
+    def near(x):
+        return (x - torch.round(x)).abs() <= 2e-5 * x.abs().clamp(min=1.0)
+
+    a, b, c = (proj.cov2d[..., i].double() for i in range(3))
+    det = a * c - b * b
+    mid = 0.5 * (a + c)
+    v_max = mid + torch.sqrt(torch.clamp(mid * mid - det, min=0.1))
+    r3 = 3.0 * torch.sqrt(v_max)
+    edge = near(r3) | (det.abs() <= 2e-5 * (a * c).abs())
+    z = proj.depths.double()
+    edge |= (z.abs() - clip).abs() <= 2e-5 * max(clip, 1e-30)
+    radii = [torch.ceil(r3)]
+    if opac is not None:
+        s_max = torch.log(torch.clamp(opac.double(), min=1e-12) * 255.0)
+        s_max = s_max.reshape(s_max.shape[0], -1).expand_as(z)
+        r_alpha = torch.sqrt(2.0 * torch.clamp(s_max, min=0.0) * v_max) + 1
+        edge |= ((s_max > 0) & near(r_alpha)) | (s_max.abs() <= 2e-5)
+        radii.append(torch.minimum(radii[0], torch.ceil(r_alpha)))
+    tcx = proj.xys[..., 0].double() / 16.0
+    tcy = proj.xys[..., 1].double() / 16.0
+    tb_x, tb_y = (w + 15) // 16, (h + 15) // 16
+    for r in radii:
+        for t, tb in ((tcx - r / 16.0, tb_x), (tcx + r / 16.0 + 1.0, tb_x),
+                      (tcy - r / 16.0, tb_y), (tcy + r / 16.0 + 1.0, tb_y)):
+            # a flip outside [0, tb] is clamped away
+            edge |= near(t) & (t > 0.5) & (t < tb + 0.5)
+    return edge
+
+
+def project_case(label, args, kw, degenerate):
+    """The kernel pair against the plain version (`_project_views` and its
+    autograd) on one set of inputs, and both against the plain version in
+    float64. A float output or gradient of the kernel passes within rtol
+    (1e-5 outputs, 1e-4 gradients of xys and conics, fixed and random)
+    and 1e-6 of the field's largest entry of the plain version's. Two
+    float32 evaluations in different orders part by the value's
+    conditioning (a row beside the camera plane divides the products'
+    rounding by its depth; the 2D determinant cancels on thin splats), so
+    the tolerance adds twice the plain version's own distance from
+    float64, four times how far the plain version moves when its inputs
+    move by ~2 ulp at random, and 8 float32 eps times the row's
+    condition kappa = (the depth's: (|V[2, :3]| |m| + |V[2, 3]|) / |z|)
+    x (the determinant's: (|a c| + b^2) / |a c - b^2|) times the value
+    (gradients: kappa^2, the worst view's, times the row's largest
+    entry); the values passed only by these terms are counted.
+    Integer outputs and the in-front mask are equal but on rows within
+    float32 rounding of an edge (`project_edges`) or whose plain integers
+    change in float64 (their count printed). Rows planted as lines and
+    rows of determinant 0 in either are left out of the float checks; the
+    rows of determinant 0 in both are culled by both. Returns the
+    kernel's outputs and the fields that failed (each printed with its
+    worst values)."""
+    import torch
+
+    from opensplat_tpu_torch.ops import projection as tproj
+    from opensplat_tpu_torch.ops.kernels import project as kproject
+
+    means, scales, quats, viewmat, projmat = args[:5]
+    rest = args[5:]
+    dev = means.device
+
+    def leaves(dtype):
+        return [t.detach().to(dtype).clone().requires_grad_()
+                for t in (means, scales, quats)]
+
+    lk, lp, l64 = leaves(torch.float32), leaves(torch.float32), \
+        leaves(torch.float64)
+    f0 = kproject.run_forward.launches
+    k = tproj.project_gaussians(lk[0], lk[1], 1.0, lk[2], viewmat, projmat,
+                                *rest, **kw)
+    if kproject.run_forward.launches != f0 + 1:
+        raise AssertionError(f"project {label}: "
+                             f"{kproject.run_forward.launches - f0} forward "
+                             "launches")
+    front_k = tproj.take_in_front(k.depths)
+    batched = viewmat.dim() == 3
+    pv = (lambda t: t) if batched else (lambda t: t[None])
+    cams = rest[:4] if batched else [[x] for x in rest[:4]]
+    opac, valid = kw.get("opacities"), kw.get("valid_mask")
+
+    def plain(x, dtype):
+        return tproj._project_views(
+            pv(x[0]), pv(x[1]), 1.0, pv(x[2]), pv(viewmat.to(dtype)),
+            pv(projmat.to(dtype)), *cams, rest[4], rest[5], 0.01,
+            None if valid is None else pv(valid),
+            None if opac is None else pv(opac.to(dtype)), 1.0 / 255.0,
+            kw.get("fov_width"), kw.get("fov_height"), kw.get("row_offset"))
+
+    p, p64 = plain(lp, torch.float32), plain(l64, torch.float64)
+    # the inputs moved by about 2 ulp each way at random: how far float32
+    # rounding moves each value of the plain version
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lq = [(t.detach() * (1.0 + 2.0 ** -22 * (2.0 * torch.randint(
+        0, 2, t.shape, generator=gen, device=dev) - 1.0))).requires_grad_()
+        for t in lp]
+    pq = plain(lq, torch.float32)
+    kb = tproj.ProjectedGaussians(*(pv(t) for t in k))
+    w, h = rest[5], rest[4]
+    edge = project_edges(p, None if opac is None else pv(opac), 0.01, w, h)
+    deg = degenerate.expand_as(edge)
+    det = [t.cov2d[..., 0] * t.cov2d[..., 2] - t.cov2d[..., 1] ** 2
+           for t in (kb, p)]
+    both0 = (det[0] == 0) & (det[1] == 0)
+    if bool((kb.mask[both0] | p.mask[both0]).any()):
+        raise AssertionError(f"project {label}: a row with det 0 visible")
+    regular = ~(deg | (det[0] == 0) | (det[1] == 0))
+    failed = []
+
+    with torch.no_grad():
+        # a row's condition: the depth's (the products' magnitude over the
+        # depth) times the 2D determinant's ((|a c| + b^2) / |det|)
+        m64 = pv(means).double()
+        vm64 = pv(viewmat).double()
+        kz = ((m64 * vm64[:, None, 2, :3]).abs().sum(-1)
+              + vm64[:, None, 2, 3].abs()) / p64.depths.abs().clamp(
+                  min=1e-300)
+        a64, b64, c64 = (p64.cov2d[..., i] for i in range(3))
+        kdet = ((a64 * c64).abs() + b64 * b64) / (
+            a64 * c64 - b64 * b64).abs().clamp(min=1e-300)
+        kappa = (kz * kdet).clamp(min=1.0)
+
+    def hold(what, a, b, c, d, rtol, slack):
+        """a (kernel) against b (plain), c (plain in float64) and d (plain
+        on the perturbed inputs), `slack` the conditioning's allowance of
+        each value; returns (max abs err against b, values passed by the
+        conditioning terms); a failure is printed and kept for the
+        end."""
+        a, b, c, d = a.double(), b.double(), c.double(), d.double()
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = (a - b).abs()
+        tol = rtol * b.abs() + 1e-6 * scale
+        cond_tol = (2.0 * (b - c).abs() + 4.0 * (d - b).abs()
+                    + slack.expand_as(b))
+        bad = (err > tol + cond_tol) | ~torch.isfinite(a)
+        if bool(bad.any()):
+            worst = torch.argsort(-(err[bad] / (tol + cond_tol)[bad]))[:5]
+            print(f"project {label}: {what}: {int(bad.sum())} of "
+                  f"{bad.numel()} values outside; worst (kernel, plain, "
+                  "float64, perturbed, tol): " + json.dumps([
+                      [float(x[bad][i]) for x in (a, b, c, d, tol)]
+                      for i in worst.tolist()]), flush=True)
+            failed.append(what)
+        return (float(err.max()) if err.numel() else 0.0,
+                int((err > tol).sum()))
+
+    errs, cond = {}, 0
+    eps = float(torch.finfo(torch.float32).eps)
+    with torch.no_grad():
+        for name in PROJECT_FLOATS:
+            b = getattr(p, name)[regular].double()
+            k_r = kappa[regular].reshape((-1,) + (1,) * (b.dim() - 1))
+            errs[name], n = hold(name, getattr(kb, name)[regular], b,
+                                 getattr(p64, name)[regular],
+                                 getattr(pq, name)[regular], 1e-5,
+                                 8.0 * eps * k_r * b.abs())
+            cond += n
+        differ = 0
+        for name in PROJECT_INTS + ("front",):
+            if name == "front":
+                a = front_k.reshape(edge.shape)
+                b, c = p.depths > 0.01, p64.depths > 0.01
+            else:
+                a, b, c = (getattr(t, name) for t in (kb, p, p64))
+            ne, ne64 = a != b, b != c
+            if a.dim() == 3:
+                ne, ne64 = ne.any(-1), ne64.any(-1)
+            edge |= ne64
+            if bool((ne & ~edge).any()):
+                raise AssertionError(
+                    f"project {label}: {name} differs in "
+                    f"{int((ne & ~edge).sum())} rows off the edges")
+            differ += int(ne.sum())
+    gen = torch.Generator(device=dev).manual_seed(3)
+    gx = torch.randn(kb.xys.shape, generator=gen, device=dev)
+    gc = torch.randn(kb.conics.shape, generator=gen, device=dev)
+    ok_rows = (regular & ~edge).all(0)
+    b0 = kproject.run_backward.launches
+    gk = torch.autograd.grad((k.xys, k.conics), lk,
+                             (gx if batched else gx[0],
+                              gc if batched else gc[0]))
+    if kproject.run_backward.launches != b0 + 1:
+        raise AssertionError(f"project {label}: backward launches")
+    gp = torch.autograd.grad((p.xys, p.conics), lp, (gx, gc))
+    g64 = torch.autograd.grad((p64.xys, p64.conics), l64,
+                              (gx.double(), gc.double()))
+    gq = torch.autograd.grad((pq.xys, pq.conics), lq, (gx, gc))
+    grad_err = {}
+    # a state's row takes its gradient from every view: the worst view's
+    # condition, squared (the backward divides by det twice)
+    kappa_g = kappa.max(0).values ** 2
+    for name, a, b, c, d in zip(("means", "scales", "quats"), gk, gp, g64,
+                                gq):
+        a = a.reshape(b.shape)
+        rows = ok_rows if a.dim() == 2 else ok_rows.expand(a.shape[:2])
+        b_r = b[rows].double()
+        # relative to the row's largest entry: a small entry is a sum of
+        # large terms
+        slack = 8.0 * eps * kappa_g.expand(a.shape[:-1])[rows][:, None] \
+            * b_r.abs().max(-1, keepdim=True).values
+        grad_err[name], n = hold(name + " gradient", a[rows], b_r, c[rows],
+                                 d[rows], 1e-4, slack)
+        cond += n
+    print(f"project {label}: {int(regular.sum())} of {regular.numel()} rows "
+          f"held; {int(edge.sum())} within rounding of an edge, where "
+          f"{differ} integer values differ; planted lines {int(deg.sum())}, "
+          f"det 0 in both {int(both0.sum())}; values passed by the "
+          f"conditioning terms {cond}; max abs err " + json.dumps(errs)
+          + ", gradients " + json.dumps(grad_err), flush=True)
+    return k, [f"{label}: {what}" for what in failed]
+
+
+def project_phase(peak, device="cuda", sizes=(5803008, 303104)):
+    """Phase 14: the projection kernel pair (csrc/project.cu) against the
+    plain version (ops/projection.py::_project_views and autograd) at
+    garden.steady's 5,803,008 rows (one view, opacities and the valid
+    mask given, a tenth dead), lego.scenes4's 4 stacked states of 303,104
+    rows, one state under 4 cameras and a band (row_offset 448 of an 840
+    px frame, fov_height), rows planted in the clip slab, behind the
+    camera, past both FOV limits and as lines of det 0
+    (`project_rows`, checks `project_case`); each view of both batches
+    equal to its own single-view call bitwise; then at garden's and
+    lego's sizes the forward and backward as the step calls them (the
+    gradients of xys and conics): CUDA-event ms (median of 20), device
+    ms (torch.profiler, 10 calls), the bound by bytes and the plain
+    version's ms; a case that fails raises after the timing. Returns the
+    kernels table's row for garden's size, with lego's figures. `sizes`: the rows of garden's and of each lego
+    state (a CPU rehearsal takes small ones)."""
+    import torch
+
+    from opensplat_tpu_torch.ops import projection as tproj
+    from opensplat_tpu_torch.ops.camera import camera_matrices
+    from opensplat_tpu_torch.ops.kernels import project as kproject
+    from opensplat_tpu_torch.tools.profiling import device_rows
+
+    info = kproject.kernel_info()
+    print("project build (CUDA runtime): " + json.dumps(info), flush=True)
+    g = GARDEN_CAMERA
+    n_garden, n_lego = sizes
+    c2w = project_pose(1, device)
+    m, s, q, o, valid, deg, vm, pm = project_rows(n_garden, g, c2w, 11,
+                                                  device)
+    cam = (g["fx"], g["fy"], g["cx"], g["cy"], g["h"], g["w"])
+    failed = project_case(f"garden {n_garden:,} x 1", (m, s, q, vm, pm)
+                          + cam, dict(valid_mask=valid, opacities=o),
+                          deg)[1]
+    failed += project_case("band rows 448-671 of 840", (m, s, q, vm, pm)
+                           + cam[:4] + (224, g["w"]),
+                           dict(valid_mask=valid, opacities=o,
+                                fov_height=g["h"], row_offset=448), deg)[1]
+    garden = (m, s, q, o, valid, vm, pm)
+    del deg
+
+    lg = LEGO_CAMERA
+    lcam = [lg[k] for k in ("fx", "fy", "cx", "cy")]
+    states = [project_rows(n_lego, lg, project_pose(2 + i, device), 20 + i,
+                           device) for i in range(4)]
+    st = [torch.stack([x[i] for x in states]) for i in range(8)]
+    vcams = [[v] * 4 for v in lcam]
+    kb, f = project_case(f"lego 4 stacked states x {n_lego:,}",
+                         (st[0], st[1], st[2], st[6], st[7]) + tuple(vcams)
+                         + (lg["h"], lg["w"]),
+                         dict(valid_mask=st[4], opacities=st[3]), st[5])
+    failed += f
+    cams4 = [project_pose(2 + i, device) for i in range(4)]
+    m1, s1, q1, o1, v1, d1, _, _ = states[0]
+    mats = [camera_matrices(c, lg["fx"], lg["fy"], lg["w"], lg["h"])[:2]
+            for c in cams4]
+    vm4 = torch.stack([x[0] for x in mats])
+    pm4 = torch.stack([x[1] for x in mats])
+    kc, f = project_case(f"one state under 4 cameras x {n_lego:,}",
+                         (m1[None], s1[None], q1[None], vm4, pm4)
+                         + tuple(vcams) + (lg["h"], lg["w"]),
+                         dict(valid_mask=v1[None], opacities=o1[None]), d1)
+    failed += f
+    with torch.no_grad():
+        for label, batch, pick in (
+                ("stacked", kb, lambda i: [x[i] for x in st]),
+                ("cameras", kc, lambda i: [m1, s1, q1, o1, v1, d1,
+                                           vm4[i], pm4[i]])):
+            for i in range(4):
+                x = pick(i)
+                one = tproj.project_gaussians(
+                    x[0], x[1], 1.0, x[2], x[6], x[7], *lcam, lg["h"],
+                    lg["w"], valid_mask=x[4], opacities=x[3])
+                for name, a, b in zip(one._fields, batch, one):
+                    if not torch.equal(a[i], b):
+                        raise AssertionError(
+                            f"project {label} view {i}: {name} differs from "
+                            "its own call")
+    print("project: each view of both batches equals its own call bitwise",
+          flush=True)
+    del kb, kc, states, mats
+
+    rows = {}
+    for label, x, c, views in (
+            ("garden", garden, cam, 1),
+            ("lego", (st[0], st[1], st[2], st[3], st[4], st[6], st[7]),
+             tuple(vcams) + (lg["h"], lg["w"]), 4)):
+        mm, ss, qq, oo, vv, vmx, pmx = x
+        lv = [t.detach().clone().requires_grad_() for t in (mm, ss, qq)]
+        gen = torch.Generator(device=device).manual_seed(5)
+        shape = tuple(mm.shape[:-1])
+        gx = torch.randn(shape + (2,), generator=gen, device=device)
+        gc = torch.randn(shape + (3,), generator=gen, device=device)
+
+        def step(plain=False):
+            if plain:
+                pv = (lambda t: t) if views > 1 else (lambda t: t[None])
+                cams = c[:4] if views > 1 else [[y] for y in c[:4]]
+                p = tproj._project_views(
+                    pv(lv[0]), pv(lv[1]), 1.0, pv(lv[2]), pv(vmx), pv(pmx),
+                    *cams, c[4], c[5], 0.01, pv(vv), pv(oo), 1.0 / 255.0,
+                    None, None, None)
+                gxx, gcc = (gx, gc) if views > 1 else (gx[None], gc[None])
+            else:
+                p = tproj.project_gaussians(lv[0], lv[1], 1.0, lv[2], vmx,
+                                            pmx, *c, valid_mask=vv,
+                                            opacities=oo)
+                gxx, gcc = gx, gc
+            torch.autograd.grad((p.xys, p.conics), lv, (gxx, gcc))
+
+        step()
+        hit = device_rows(step, 10, device)
+        n_rec = {k: sum(cnt for name, _, cnt in hit if fn in name)
+                 for k, fn in (("fwd", "project_fwd_kernel"),
+                               ("bwd", "project_bwd_kernel"))}
+        dev_ms = sum(t * cnt for _, t, cnt in hit) / 10 if hit else None
+        n_rows = mm.shape[0] * mm.shape[1] if views > 1 else mm.shape[0]
+        bound = (PROJECT_BYTES_FWD + PROJECT_BYTES_BWD) * n_rows \
+            / peak[0] * 1e3
+        rows[label] = {
+            "rows": n_rows, "views": views, "ms": time_ms(step, 20),
+            "device_ms": dev_ms, "launches_recorded": n_rec,
+            "bound_ms": bound, "bound_by": "bytes",
+            "plain_ms": time_ms(lambda: step(True), 3),
+        }
+        rows[label]["roofline_pct"] = 100.0 * bound / (
+            dev_ms or rows[label]["ms"])
+        print(f"project {label} forward + backward: " + json.dumps(
+            rows[label]), flush=True)
+        del lv, gx, gc
+    del garden, st
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(
+            "project: values outside rtol (1e-5, gradients 1e-4) and atol "
+            "1e-6*max|x| plus the conditioning terms (project_case): "
+            + "; ".join(failed))
+    garden = rows["garden"]
+    return {
+        "name": "project", "route": "cuda",
+        "source": "opensplat_tpu_torch/csrc/project.cu", "replaces": None,
+        "max_abs_err": None, "ms": garden["ms"],
+        "plain_ms": garden["plain_ms"], "bound_ms": garden["bound_ms"],
+        "bound_by": garden["bound_by"], "library_ms": None,
+        "device_ms": garden["device_ms"], "lego": rows["lego"],
+    }
+
+
 def main():
     try:
         import torch
@@ -2860,8 +3310,9 @@ def main():
     peak = next((v for k, v in PEAKS.items() if k in kind), None)
     if peak is None:
         raise RuntimeError(f"no published peaks for {kind!r}")
-    from opensplat_tpu_torch.ops.kernels import (_lib, adam, expand, raster,
-                                                 raster_variants, segsum)
+    from opensplat_tpu_torch.ops.kernels import (_lib, adam, expand, project,
+                                                 raster, raster_variants,
+                                                 segsum)
 
     t0 = time.perf_counter()
     _lib.library()
@@ -2906,7 +3357,9 @@ def main():
     cfg = TrainConfig(num_downscales=0, sh_degree_interval=1,
                       capacity_round=131072)
     trainer = Trainer(state, cams, cfg, device="cuda")
-    wrappers = dict(training_wrappers(), adam=adam.adam_step)
+    wrappers = dict(training_wrappers(), adam=adam.adam_step,
+                    project_fwd=project.run_forward,
+                    project_bwd=project.run_backward)
     n_steps = 20
     for fn in wrappers.values():
         fn.launches = 0
@@ -3055,6 +3508,9 @@ def main():
     # phase 13: the Adam kernel at the cells' sizes
     adam_row = adam_phase(peak)
     done(13)
+    # phase 14: the projection kernel pair at the cells' sizes
+    project_row = project_phase(peak)
+    done(14)
 
     table = []
     for k, (src, rep) in KERNELS.items():
@@ -3091,6 +3547,11 @@ def main():
         parallel_launches=parallel_launches["adam"],
         batched_launches=batched_launches["adam"])
     table.append(adam_row)
+    # the projection pair's [forward, backward] launches over phase 3's
+    # 20 steps
+    project_row.update(launches=[launches["project_fwd"],
+                                 launches["project_bwd"]])
+    table.append(project_row)
     for row in table:
         print(f"  {row['name']:<10} {row['ms']:.4f} ms  device "
               f"{row['device_ms']} ms  bound {row['bound_ms']:.4f} ms "

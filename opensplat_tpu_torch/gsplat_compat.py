@@ -5,7 +5,10 @@ gsplat and exposes 11 kernel entry points (rasterizer/gsplat/ext.cpp:4-18);
 this module provides the same capabilities on the port's ops. The
 *_backward functions mirror the reference's pairs and take their
 gradients with torch.autograd.grad through the forward (the JAX copy uses
-jax.vjp). Every function runs on its inputs' device.
+jax.vjp). Every function runs on its inputs' device: on the card the
+projection's backward is the projection kernel pair's, derived by hand
+(ops/kernels/project.py), and on the CPU autograd's through the plain
+version (ops/projection.py).
 
 Entry point mapping (reference -> here):
   project_gaussians_forward   -> project_gaussians_forward
@@ -103,9 +106,10 @@ def project_gaussians_backward(
     cov3d, radii, conics, v_xy, v_depth, v_conic,
 ):
     """(v_mean3d, v_scale, v_quat): the parameter gradients of the
-    reference's hand-written VJPs (backward.cu:357-542), here by autograd
-    through the same forward. The reference's intermediate covariance
-    gradients are not returned."""
+    reference's hand-written VJPs (backward.cu:357-542), here by
+    torch.autograd.grad through the same forward: the projection kernel's
+    hand-derived backward on the card, autograd's on the CPU. The
+    reference's intermediate covariance gradients are not returned."""
     with torch.enable_grad():
         m, s, q = _leaves(means3d, scales, quats)
         proj = project_gaussians(m, s, glob_scale, q, viewmat, projmat,

@@ -11,4 +11,6 @@ its plain PyTorch version and launch counter:
                                          (the ablation bench's kernel)
   adam.adam_step ....................... masked Adam over all parameter
                                          groups, in place, one launch
+  project.project ...................... EWA projection, forward and
+                                         its hand-derived backward
 """

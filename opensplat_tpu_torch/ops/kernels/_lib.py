@@ -29,8 +29,9 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("errors.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
-           "segsum.cu", "raster_fwd_variants.cu", "ssim.cu", "adam.cu")
-HEADERS = ("common.cuh",)
+           "segsum.cu", "raster_fwd_variants.cu", "ssim.cu", "adam.cu",
+           "project.cu")
+HEADERS = ("common.cuh", "project_row.cuh")
 LIB_NAME = "libopensplat_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -137,6 +138,9 @@ _SIGNATURES = {
     "osk_adam": ([ctypes.c_int] + [ctypes.c_void_p] * 6
                  + [ctypes.c_float] * 7 + [ctypes.c_void_p], ctypes.c_int),
     "osk_adam_info": ([ctypes.c_void_p], ctypes.c_int),
+    "osk_project_fwd": ([ctypes.c_void_p] * 4, ctypes.c_int),
+    "osk_project_bwd": ([ctypes.c_void_p] * 4, ctypes.c_int),
+    "osk_project_info": ([ctypes.c_void_p], ctypes.c_int),
 }
 
 

@@ -7,17 +7,23 @@ that need it), band rendering included (`fov_width`/`fov_height`,
 quat -> R -> cov3d, EWA cov2d with FOV clamping and the +0.3 px blur,
 conic and 3-sigma radius, NDC -> pixel centre, and the per-Gaussian tile
 bounding box (opacity-aware when `opacities` is given). Elementwise over
-the Gaussian axis; gradients come from torch autograd, as the JAX package
-takes them from jax.grad.
+the Gaussian axis. On the card `project_gaussians` is the projection
+kernel pair (ops/kernels/project.py, csrc/project.cu): one launch
+forward, and a backward derived by hand, one launch; on the CPU it is
+`_project_views` below, the plain version, whose gradients come from
+torch autograd, as the JAX package takes them from jax.grad. The
+tensor's device alone selects.
 
 A row in the clip slab (|z| < clip_thresh) is culled and evaluated at
 depth 1, as the benchmark's reference does and as gsplat's kernel skips
 it: its outputs stay finite and its gradient is 0. The JAX package
 clamps |z| only to 1e-8, where the 2D covariance overflows float32; the
 two differ on such rows alone. Counters (utils/metrics.py):
-`project.rows`, the rows projected (views x Gaussians), and
+`project.rows`, the rows projected (views x Gaussians),
 `project.clipped`, the rows behind the clip plane (z <= clip_thresh),
-counted by the binning of the projection (`take_in_front`).
+counted by the binning of the projection (`take_in_front`),
+`project.calls`, the calls of `project_gaussians`, and `project.fused`,
+those that launched the kernel.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..utils.metrics import count, host_sync
+from .kernels import project as kproject
 from .tensor_math import quat_to_rotmat
 from .views import per_view
 
@@ -103,10 +110,12 @@ def project_gaussians(
     Views: viewmat and projmat (V, 4, 4) with V values each of fx, fy,
     cx and cy project V views at once; the Gaussians' tensors are one
     state's (N, ...) or V states' (V, N, ...), valid_mask and opacities
-    likewise, and every output gains the leading V. The two products
-    with the view's matrices run once a view (views.per_view) and
-    everything else is elementwise, so each view's outputs are the bits
-    of its own call; the single view is this path at V = 1."""
+    likewise, and every output gains the leading V. On the card one
+    thread a (view, row) computes every output from that view's scalars
+    and matrices alone; in the plain version the two products with the
+    view's matrices run once a view (views.per_view) and everything else
+    is elementwise: either way each view's outputs are the bits of its
+    own call, and the single view is this path at V = 1."""
     batched = viewmat.dim() == 3
     if not batched:
         means, scales, quats = means[None], scales[None], quats[None]
@@ -116,11 +125,26 @@ def project_gaussians(
             valid_mask = valid_mask[None]
         if opacities is not None:
             opacities = opacities[None]
-    out = _project_views(means.to(torch.float32), scales, glob_scale, quats,
-                         viewmat, projmat, fx, fy, cx, cy, img_height,
-                         img_width, clip_thresh, valid_mask, opacities,
-                         alpha_thresh, fov_width, fov_height, row_offset)
-    return out if batched else ProjectedGaussians(*(t[0] for t in out))
+    args = (means.to(torch.float32), scales, glob_scale, quats, viewmat,
+            projmat, fx, fy, cx, cy, img_height, img_width, clip_thresh,
+            valid_mask, opacities, alpha_thresh, fov_width, fov_height,
+            row_offset)
+    count("project.calls")
+    if means.is_cuda:
+        before = kproject.run_forward.launches
+        *fields, front = kproject.project(*args)
+        out = ProjectedGaussians(*fields)
+        global _in_front
+        _in_front = front
+        count("project.rows", front.numel())
+        if kproject.run_forward.launches != before:
+            count("project.fused")
+    else:
+        out = _project_views(*args)
+    # a single view drops the view axis by squeeze, whose backward
+    # reshapes the gradient (t[0]'s scatters it into zeros)
+    return out if batched else ProjectedGaussians(*(t.squeeze(0)
+                                                    for t in out))
 
 
 def _view_col(vals, device) -> torch.Tensor:
