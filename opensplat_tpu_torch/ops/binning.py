@@ -27,6 +27,12 @@ view v's tiles are v * T .. v * T + T - 1 of one key space, and one
 cumsum, one host read of the total, one expand launch, one sort and one
 searchsorted over V * T + 1 bounds serve every view. Each view's ranges,
 records and order are those of binning the view alone.
+
+Counters (utils/metrics.py): `bin.views` and `bin.rows`, the views and
+rows (views x Gaussians) binned, from shapes; `bin.candidates`, the
+candidate rows (the stream total), and `bin.rows_hit`, the rows with at
+least one candidate tile, both taken in the one read of the stream
+total.
 """
 from __future__ import annotations
 
@@ -91,22 +97,28 @@ def _bin(proj, height, width, opacities) -> BinnedGaussians:
     per_view = proj.num_tiles_hit.shape[-1]
     cnt = proj.num_tiles_hit.reshape(-1).to(torch.int32).contiguous()
     rows = cnt.numel()
-    # the candidates' cumsum, then the projection's rows in front of the
-    # clip plane, side by side: one read takes the total and that count
-    head = torch.empty(rows + 1, dtype=torch.int64, device=dev)
+    # the candidates' cumsum, the rows with a candidate, then the
+    # projection's rows in front of the clip plane, side by side: one
+    # read takes the total and those counts
+    head = torch.empty(rows + 2, dtype=torch.int64, device=dev)
     cum = torch.cumsum(cnt.long(), 0, out=head[:rows])
+    torch.sum(cnt > 0, 0, out=head[rows])
     in_front = take_in_front(cnt)
-    last = rows
+    last = rows + 1
     if in_front is not None:
-        torch.sum(in_front.reshape(-1), 0, out=head[rows])
+        torch.sum(in_front.reshape(-1), 0, out=head[rows + 1])
         last += 1
     total = 0
+    count("bin.views", views)
+    count("bin.rows", rows)
     if rows:
         with host_sync("stream_total", dev):  # the one host read per call
             read = head[rows - 1:last].tolist()
         total = read[0]
+        count("bin.candidates", total)
+        count("bin.rows_hit", read[1])
         if in_front is not None:
-            count("project.clipped", rows - read[1])
+            count("project.clipped", rows - read[2])
     if total >= 2**31 or rows >= 2**31:
         raise ValueError(
             f"bin_gaussians: {total} candidate rows of {cnt.numel()} "

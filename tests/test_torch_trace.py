@@ -8,7 +8,8 @@ by site (every step the same sites) on a CUDA device alone, so the
 CPU's are counted here as if they were a card's; the GT cache's hits and misses
 match the cameras' get_image calls; the projection's rows and the rows
 behind its clip plane are counted, the latter in the stream total's
-read. 32 x 32 px, 64 Gaussians a scene."""
+read, as are the binning's candidates and rows with a candidate, beside
+the views and rows it bins. 32 x 32 px, 64 Gaussians a scene."""
 import threading
 from collections import Counter
 
@@ -295,18 +296,35 @@ def test_projection_counts_rows_and_rows_behind_the_clip_plane(monkeypatch):
     # the one-view step, then two scenes in one batched step (V = 2):
     # every row of every view projected, the rows behind the plane of
     # each view summed; the read that takes them is the stream total's,
-    # so a step makes the same host syncs by site as before the count
+    # as are the binning's candidates (the stream total) and rows with a
+    # candidate tile, summed on the device; the views and rows binned are
+    # counted from shapes. So a step makes the same host syncs by site as
+    # before the counts
+    from opensplat_tpu_torch.ops.kernels import integration
+
     _count_cpu(monkeypatch)
+    seen = {}
+
+    def bin_seen(proj, *args):
+        out = real_bin(proj, *args)
+        seen["hit"], seen["total"] = proj.num_tiles_hit.clone(), out.n_cands
+        return out
+
+    real_bin = integration.bin_gaussians
+    monkeypatch.setattr(integration, "bin_gaussians", bin_seen)
     calls = [0]
-    tr = _trainer(Trainer, *_depth_scene(0, calls))
-    _, added = _step(tr, 11)
-    assert added["project.rows"] == 64
-    assert added["project.clipped"] == BEHIND
-    assert _by_site(added) == dict(_syncs(1), gt_upload=1)
+    one = _trainer(Trainer, *_depth_scene(0, calls))
     scenes = [_depth_scene(s, calls) for s in (1, 2)]
-    tr = _trainer(MultiSceneTrainer, [s for s, _ in scenes],
-                  [c for _, c in scenes])
-    _, added = _step(tr, 11)
-    assert added["project.rows"] == 2 * 64
-    assert added["project.clipped"] == 2 * BEHIND
-    assert _by_site(added) == dict(_syncs(2), gt_upload=2)
+    two = _trainer(MultiSceneTrainer, [s for s, _ in scenes],
+                   [c for _, c in scenes])
+    for tr, views in ((one, 1), (two, 2)):
+        _, added = _step(tr, 11)
+        assert added["project.rows"] == views * 64
+        assert added["project.clipped"] == views * BEHIND
+        assert _by_site(added) == dict(_syncs(views), gt_upload=views)
+        hit = seen["hit"]
+        assert hit.numel() == views * 64 and added["bin.views"] == views
+        assert added["bin.candidates"] == seen["total"] == int(
+            hit.long().sum())
+        assert 0 < added["bin.rows_hit"] == int((hit > 0).sum()) < views * 64
+        assert added["bin.rows"] == views * 64
