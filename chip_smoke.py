@@ -164,6 +164,15 @@ Phases (any failure raises and the script exits non-zero):
      to its own call bitwise; timed beside its bound and the plain
      version (project_phase). Phase 3 requires one forward and one
      backward launch a step.
+ 15. the SH kernel pair (csrc/sh.cu) against the plain version
+     (ops/sh.py::render_colours_plain and autograd) at SH degree 3 at
+     garden.steady's 5,803,008 rows, aerial.steady's 24,300,000 and
+     lego.scenes4's 4 stacked states of 303,104 rows, the colour
+     gradient a column slice of 9-float rows as the rasterizer hands it,
+     rows planted at the camera centre and at pre-clamp colours exactly 0
+     and below it; timed beside its bound and the plain version
+     (sh_phase). Phase 3 requires one forward and one backward launch a
+     step.
 The line before the last is the {"kernels": [...]} table (with each
 training kernel's phase-7 launches as `cli_launches`, expand's and
 segsum's over phase 8's tiled Trainer steps as `tiled_launches`, rank
@@ -178,6 +187,8 @@ launches of phases 7, 9 and 11, one a view; the `adam` row is phase
 13's at garden's size, its `lego` lego's figures, its launches those of
 phases 3, 7, 9 and 11; the `project` row is phase 14's at garden's
 size, its `lego` lego's figures, its launches phase 3's [forward,
+backward]; the `sh` row is phase 15's at garden's size, its `lego`
+and `aerial` those sizes' figures, its launches phase 3's [forward,
 backward]); the last line
 is {"ok": true, "device": {...}}. Without a CUDA card it exits non-zero
 and prints no result. It imports nothing of JAX or opensplat_tpu.
@@ -228,7 +239,8 @@ KERNEL_FUNCS = {"expand": "expand_kernel", "raster_fwd": "raster_fwd_kernel",
                 "raster_bwd": "raster_bwd_kernel", "segsum": "segsum_kernel",
                 "kbench_fwd": "kbench_fwd_kernel", "adam": "adam_kernel",
                 "project_fwd": "project_fwd_kernel",
-                "project_bwd": "project_bwd_kernel"}
+                "project_bwd": "project_bwd_kernel",
+                "sh_fwd": "sh_fwd_kernel", "sh_bwd": "sh_bwd_kernel"}
 
 
 class Camera:
@@ -3277,6 +3289,225 @@ def project_phase(peak, device="cuda", sizes=(5803008, 303104)):
     }
 
 
+# bytes a (view, row) of the SH kernel pair at B bases: the forward reads
+# the mean, features_dc and features_rest (12 B each row of 3 floats) and
+# writes the colour and the clamp's mask; the backward reads the colour
+# gradient, the mean and the mask and writes both coefficient gradients
+def sh_bytes(bases):
+    return (12 + 12 * bases + 12 + 1, 12 + 12 + 1 + 12 * bases)
+
+
+SH_AT_CAMERA, SH_AT_ZERO, SH_NEGATIVE = 0, 1, 2  # sh_rows' planted rows
+
+
+def sh_rows(n, views, states, seed, device, bases=16):
+    """The render's SH inputs as the step hands them: means (states, n, 3)
+    within 30 of the origin, the views' camera centres (views, 3) on a
+    ring of radius 8, features_dc (states, n, 3) ~ N(0, 0.5) and
+    features_rest (states, n, bases - 1, 3) ~ N(0, 0.1); row
+    SH_AT_CAMERA of each state at its view's camera centre (view 0's
+    where one state serves every view), SH_AT_ZERO's colour exactly 0
+    before the clamp and SH_NEGATIVE's below it in every view; and the
+    colour gradient (views, n, 3) as the rasterizer hands it, columns 6-8
+    of 9-float rows."""
+    import torch
+
+    from opensplat_tpu_torch.ops.sh import SH_C0
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device=device)
+
+    a = torch.rand(views, generator=gen, device=device) * 6.2832
+    cam = torch.stack([8.0 * torch.cos(a), 8.0 * torch.sin(a),
+                       2.0 + randn(views)], 1)
+    means = (torch.rand((states, n, 3), generator=gen, device=device)
+             * 60.0 - 30.0)
+    dc = randn(states, n, 3, scale=0.5)
+    rest = randn(states, n, bases - 1, 3, scale=0.1)
+    for s in range(states):
+        means[s, SH_AT_CAMERA] = cam[s if states > 1 else 0]
+    zero_dc = np.float32(-0.5 / float(np.float32(SH_C0)))
+    if np.float32(np.float32(SH_C0) * zero_dc) != np.float32(-0.5):
+        raise AssertionError("no float32 features_dc makes the colour 0")
+    dc[:, SH_AT_ZERO], dc[:, SH_NEGATIVE] = float(zero_dc), -4.0
+    rest[:, SH_AT_ZERO] = rest[:, SH_NEGATIVE] = 0.0
+    v_rgb = randn(views * n, 9)[:, 6:9].reshape(views, n, 3)
+    return means, cam, dc, rest, v_rgb
+
+
+def sh_case(label, deg, x, got, want, v_rgb, chunk=1 << 21):
+    """The kernel pair's (rgb, v_dc, v_rest) `got` against the plain
+    version's `want` on inputs x = (means, cam, dc, rest), in float64,
+    `chunk` rows at a time. Each used basis entry may part by 32 eps +
+    8 eps |basis_b| =: e_b (the direction's norm summed in another order,
+    times the basis' slope; a column that cancels keeps its terms'
+    rounding); a colour by 2 B eps (sum_b |basis_b coeff_bc| + 0.5), two
+    float32 sums of B products in different orders, plus sum_b e_b
+    |coeff_bc|; a coefficient gradient, one product basis_b g_c a view,
+    by e_b |g_c| + eps |basis_b g_c| a view, summed over the views, plus
+    2 eps a view of sum_v |basis_b g_c| where one state adds every
+    view's (tests/test_torch_sh.py's tolerances). A channel whose plain
+    pre-clamp colour lies within the colour's tolerance of 0 is left out
+    of the gradients' check (counted; at most 1e-5 of them). The planted
+    rows' colours must be 0. Returns the failures (each with its worst value)."""
+    import torch
+
+    from opensplat_tpu_torch.ops import sh as tsh
+
+    eps = float(np.finfo(np.float32).eps)
+    means, cam, dc, rest = x
+    views, states, n = cam.shape[0], dc.shape[0], dc.shape[1]
+    bases = rest.shape[2] + 1
+    used = (torch.arange(bases, device=means.device)
+            < tsh.num_sh_bases(deg))
+    failed, unsure_n = [], 0
+    worst = {"rgb": 0.0, "v_dc": 0.0, "v_rest": 0.0}
+    for r0 in range(0, n, chunk):
+        sl = slice(r0, min(r0 + chunk, n))
+        d = means[:, sl] - cam[:, None, :]
+        d = d / torch.clamp(torch.linalg.norm(d, dim=-1, keepdim=True),
+                            min=1e-12)
+        bs = tsh.eval_sh_basis(tsh.deg_from_sh(bases), deg, d).double()
+        co = torch.cat([dc[:, sl, None, :], rest[:, sl]], 2).double()
+        co = co.expand((views,) + co.shape[1:])
+        err = (32 * eps + 8 * eps * bs.abs()) * used
+        tol = 2 * bases * eps * (torch.einsum(
+            "vnb,vnbc->vnc", bs.abs(), co.abs()) + 0.5) + torch.einsum(
+            "vnb,vnbc->vnc", err, co.abs())
+        diff = (got[0][:, sl].double() - want[0][:, sl].double()).abs()
+        worst["rgb"] = max(worst["rgb"], float((diff / tol).max()))
+        pre = torch.einsum("vnb,vnbc->vnc", bs, co) + 0.5
+        unsure = pre.abs() <= tol
+        if r0 == 0:  # its product rounds to -0.5 on both sides
+            pre[:, SH_AT_ZERO] = 0.0
+            unsure[:, SH_AT_ZERO] = False
+        unsure_n += int(unsure.sum())
+        g = torch.where(pre >= 0, v_rgb[:, sl].double(), 0.0).abs()
+        prod = bs.abs()[..., None] * g[:, :, None]
+        gtol = err[..., None] * g[:, :, None] + eps * prod
+        keep = ~unsure
+        if states == 1:
+            gtol = gtol.sum(0, keepdim=True) + 2 * views * eps * prod.sum(
+                0, keepdim=True)
+            keep = keep.all(0, keepdim=True)
+        del bs, co, err, prod, pre
+        for name, k, p, cols in (("v_dc", got[1], want[1], slice(0, 1)),
+                                 ("v_rest", got[2], want[2],
+                                  slice(1, None))):
+            k = k[:, sl].double().reshape(states, sl.stop - r0, -1, 3)
+            p = p[:, sl].double().reshape(states, sl.stop - r0, -1, 3)
+            ratio = (k - p).abs() / gtol[:, :, cols].clamp(min=1e-300)
+            ratio = ratio * keep[:, :, None, :]
+            worst[name] = max(worst[name], float(ratio.max()))
+        del gtol, keep, g
+    for name, w in worst.items():
+        if not w <= 1.0:
+            failed.append(f"{label}: {name} at {w:.3g}x its tolerance")
+    planted = got[0][:, [SH_AT_ZERO, SH_NEGATIVE]]
+    if not bool((planted == 0).all()):
+        failed.append(f"{label}: a planted row's colour is not 0")
+    if unsure_n > 1e-5 * 3 * views * n + 16:
+        failed.append(f"{label}: {unsure_n} channels within rounding of "
+                      "the clamp")
+    print(f"sh {label}: worst error over tolerance " + json.dumps(
+        {k: round(v, 4) for k, v in worst.items()})
+        + f"; channels at the clamp left out {unsure_n}", flush=True)
+    return failed
+
+
+def sh_phase(peak, device="cuda",
+             sizes=(5803008, 24300000, 303104)):
+    """Phase 15: the SH kernel pair (csrc/sh.cu) against the plain version
+    (ops/sh.py::render_colours_plain and autograd) at SH degree 3 at
+    garden.steady's 5,803,008 rows and aerial.steady's 24,300,000 (one
+    view each) and lego.scenes4's 4 stacked states of 303,104 rows
+    (`sh_rows`, checks `sh_case`); at each size the forward and backward
+    as the step calls them (both coefficient gradients): CUDA-event ms
+    (median of 20), device ms (torch.profiler over 10 calls: the pair's
+    two kernels, each per recorded launch, with the launches recorded;
+    None where the trace kept none), the bound by bytes and the plain
+    version's ms; a case that fails raises after the timing. Returns the
+    kernels table's row for garden's size, with lego's and aerial's
+    figures. `sizes`:
+    the rows of garden's, aerial's and each lego state (a CPU rehearsal
+    takes small ones)."""
+    import torch
+
+    from opensplat_tpu_torch.ops import sh as tsh
+    from opensplat_tpu_torch.ops.kernels import sh as ksh
+    from opensplat_tpu_torch.tools.profiling import device_rows
+
+    if torch.device(device).type == "cuda":
+        print("sh build (CUDA runtime): " + json.dumps(ksh.kernel_info()),
+              flush=True)
+    n_garden, n_aerial, n_lego = sizes
+    rows, failed = {}, []
+    for i, (label, n, views) in enumerate((("garden", n_garden, 1),
+                                           ("lego", n_lego, 4),
+                                           ("aerial", n_aerial, 1))):
+        means, cam, dc, rest, v_rgb = sh_rows(n, views, views, 30 + i,
+                                              device)
+        leaves = [t.clone().requires_grad_() for t in (dc, rest)]
+
+        def step(plain=False):
+            fn = tsh.render_colours_plain if plain else tsh.render_colours
+            rgb = fn(3, means, cam, *leaves)
+            return (rgb,) + torch.autograd.grad(rgb, leaves, v_rgb)
+
+        before = (ksh.run_forward.launches, ksh.run_backward.launches)
+        got = [t.detach() for t in step()]
+        if device != "cpu" and (ksh.run_forward.launches,
+                                ksh.run_backward.launches) != (
+                before[0] + 1, before[1] + 1):
+            raise AssertionError(f"sh {label}: not one forward and one "
+                                 "backward launch")
+        want = [t.detach() for t in step(True)]
+        failed += sh_case(f"{label} {views} x {n:,}", 3,
+                          (means, cam, dc, rest), got, want, v_rgb)
+        del got, want
+        # per recorded launch: the trace can miss launches, or all of
+        # them after many profiler sessions in one process
+        hit = device_rows(step, 10, device)
+        launch_ms, n_rec = {}, {}
+        for k, fn in (("fwd", "sh_fwd_kernel"), ("bwd", "sh_bwd_kernel")):
+            mine = [(t, c) for name, t, c in hit if fn in name]
+            n_rec[k] = sum(c for _, c in mine)
+            launch_ms[k] = (sum(t * c for t, c in mine) / n_rec[k]
+                            if n_rec[k] else None)
+        dev_ms = (launch_ms["fwd"] + launch_ms["bwd"]
+                  if None not in launch_ms.values() else None)
+        bound = sum(sh_bytes(16)) * views * n / peak[0] * 1e3
+        rows[label] = {
+            "rows": views * n, "views": views, "ms": time_ms(step, 20),
+            "device_ms": dev_ms, "device_ms_by_kernel": launch_ms,
+            "launches_recorded": n_rec, "bound_ms": bound,
+            "bound_by": "bytes",
+            "plain_ms": time_ms(lambda: step(True), 3),
+        }
+        rows[label]["roofline_pct"] = 100.0 * bound / (
+            dev_ms or rows[label]["ms"])
+        print(f"sh {label} forward + backward: " + json.dumps(rows[label]),
+              flush=True)
+        del means, cam, dc, rest, v_rgb, leaves
+        if device != "cpu":
+            torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("sh: values outside their tolerances "
+                             "(sh_case): " + "; ".join(failed))
+    garden = rows["garden"]
+    return {
+        "name": "sh", "route": "cuda",
+        "source": "opensplat_tpu_torch/csrc/sh.cu", "replaces": None,
+        "max_abs_err": None, "ms": garden["ms"],
+        "plain_ms": garden["plain_ms"], "bound_ms": garden["bound_ms"],
+        "bound_by": garden["bound_by"], "library_ms": None,
+        "device_ms": garden["device_ms"], "lego": rows["lego"],
+        "aerial": rows["aerial"],
+    }
+
+
 def main():
     try:
         import torch
@@ -3312,7 +3543,7 @@ def main():
         raise RuntimeError(f"no published peaks for {kind!r}")
     from opensplat_tpu_torch.ops.kernels import (_lib, adam, expand, project,
                                                  raster, raster_variants,
-                                                 segsum)
+                                                 segsum, sh)
 
     t0 = time.perf_counter()
     _lib.library()
@@ -3359,7 +3590,8 @@ def main():
     trainer = Trainer(state, cams, cfg, device="cuda")
     wrappers = dict(training_wrappers(), adam=adam.adam_step,
                     project_fwd=project.run_forward,
-                    project_bwd=project.run_backward)
+                    project_bwd=project.run_backward,
+                    sh_fwd=sh.run_forward, sh_bwd=sh.run_backward)
     n_steps = 20
     for fn in wrappers.values():
         fn.launches = 0
@@ -3511,6 +3743,9 @@ def main():
     # phase 14: the projection kernel pair at the cells' sizes
     project_row = project_phase(peak)
     done(14)
+    # phase 15: the SH kernel pair at the cells' sizes
+    sh_row = sh_phase(peak)
+    done(15)
 
     table = []
     for k, (src, rep) in KERNELS.items():
@@ -3552,6 +3787,9 @@ def main():
     project_row.update(launches=[launches["project_fwd"],
                                  launches["project_bwd"]])
     table.append(project_row)
+    # the SH pair's [forward, backward] launches over phase 3's 20 steps
+    sh_row.update(launches=[launches["sh_fwd"], launches["sh_bwd"]])
+    table.append(sh_row)
     for row in table:
         print(f"  {row['name']:<10} {row['ms']:.4f} ms  device "
               f"{row['device_ms']} ms  bound {row['bound_ms']:.4f} ms "

@@ -26,7 +26,7 @@ from ..ops.kernels.integration import rasterize_fast
 from ..ops.projection import ProjectedGaussians, project_gaussians
 from ..ops.rasterize import rasterize
 from ..ops.rasterize_tiled import rasterize_tiled
-from ..ops.sh import spherical_harmonics
+from ..ops.sh import render_colours
 from ..utils.metrics import span
 from .gaussians import GaussianParams
 
@@ -134,16 +134,10 @@ def render_forward(
         proj = _project(params, alive, viewmat, full_proj, fx, fy, cx, cy,
                         height, width, fov_width, fov_height, row_offset)
         xys = proj.xys if xys_shift is None else proj.xys + xys_shift
-
-        # SH view directions from detached means (model.cpp:176-177)
-        viewdirs = params.means.detach() - cam_pos[:, None, :]
-        viewdirs = viewdirs / torch.clamp(
-            torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
-        coeffs = torch.cat([params.features_dc[..., None, :],
-                            params.features_rest], dim=-2)
-        rgbs = torch.clamp(
-            spherical_harmonics(sh_degrees_to_use, viewdirs, coeffs) + 0.5,
-            min=0.0)  # model.cpp:192
+    with span("render.sh"):
+        rgbs = render_colours(sh_degrees_to_use, params.means.detach(),
+                              cam_pos, params.features_dc,
+                              params.features_rest)
 
     background = background.to(dev)
     if renderer == "fast":

@@ -30,8 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 SOURCES = ("errors.cu", "expand.cu", "raster_fwd.cu", "raster_bwd.cu",
            "segsum.cu", "raster_fwd_variants.cu", "ssim.cu", "adam.cu",
-           "project.cu")
-HEADERS = ("common.cuh", "project_row.cuh")
+           "project.cu", "sh.cu")
+HEADERS = ("common.cuh", "project_row.cuh", "sh_row.cuh")
 LIB_NAME = "libopensplat_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -141,6 +141,9 @@ _SIGNATURES = {
     "osk_project_fwd": ([ctypes.c_void_p] * 4, ctypes.c_int),
     "osk_project_bwd": ([ctypes.c_void_p] * 4, ctypes.c_int),
     "osk_project_info": ([ctypes.c_void_p], ctypes.c_int),
+    "osk_sh_fwd": ([ctypes.c_void_p] * 3, ctypes.c_int),
+    "osk_sh_bwd": ([ctypes.c_void_p] * 3, ctypes.c_int),
+    "osk_sh_info": ([ctypes.c_void_p], ctypes.c_int),
 }
 
 

@@ -4,11 +4,22 @@ Counterpart of opensplat_tpu/ops/sh.py (reference sh.cuh:12-124): a
 (N, B) basis matrix contracted with (N, B, 3) coefficients; gradients
 from autograd. A batch of views contracts once a view (views.per_view),
 so each view's colours are the bits of its own call.
+
+The render's colours (`render_colours`: view directions, SH, + 0.5,
+clamped at 0) are on the card the SH kernel pair (ops/kernels/sh.py,
+csrc/sh.cu): one forward launch reading features_dc and features_rest
+where they lie, and a backward derived by hand, one launch; on the CPU
+they are `render_colours_plain` below, whose gradients come from torch
+autograd. The tensor's device alone selects. Counters (utils/
+metrics.py): `sh.calls`, the calls of `render_colours`, and `sh.fused`,
+those that launched the forward kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import count
+from .kernels import sh as ksh
 from .views import per_view
 
 SH_C0 = 0.28209479177387814
@@ -132,3 +143,40 @@ def spherical_harmonics(degrees_to_use: int, viewdirs: torch.Tensor,
         coeffs = coeffs[None]
     return per_view(lambda b, c: torch.einsum("nb,nbc->nc", b, c),
                     viewdirs.shape[0], basis, coeffs)
+
+
+def render_colours(degrees_to_use: int, means: torch.Tensor,
+                   cam_pos: torch.Tensor, features_dc: torch.Tensor,
+                   features_rest: torch.Tensor) -> torch.Tensor:
+    """The clamped colours (V, N, 3) that V views render: means (1 or V,
+    N, 3), detached; cam_pos (V, 3), the views' camera centres;
+    features_dc (1 or V, N, 3) and features_rest (1 or V, N, B - 1, 3),
+    one state's coefficients for every view or a state a view. On the
+    card one thread a (view, row) computes its colour from that view's
+    camera and the row alone; in the plain version the products run once
+    a view (views.per_view): either way each view's colours are the bits
+    of its own call."""
+    count("sh.calls")
+    if means.is_cuda:
+        before = ksh.run_forward.launches
+        out = ksh.sh_colours(num_sh_bases(degrees_to_use), means, cam_pos,
+                             features_dc, features_rest)
+        if ksh.run_forward.launches != before:
+            count("sh.fused")
+        return out
+    return render_colours_plain(degrees_to_use, means, cam_pos, features_dc,
+                                features_rest)
+
+
+def render_colours_plain(degrees_to_use: int, means: torch.Tensor,
+                         cam_pos: torch.Tensor, features_dc: torch.Tensor,
+                         features_rest: torch.Tensor) -> torch.Tensor:
+    """`render_colours` in plain PyTorch, its gradients from autograd."""
+    # SH view directions from detached means (model.cpp:176-177)
+    viewdirs = means.detach() - cam_pos[:, None, :]
+    viewdirs = viewdirs / torch.clamp(
+        torch.linalg.norm(viewdirs, dim=-1, keepdim=True), min=1e-12)
+    coeffs = torch.cat([features_dc[..., None, :], features_rest], dim=-2)
+    return torch.clamp(
+        spherical_harmonics(degrees_to_use, viewdirs, coeffs) + 0.5,
+        min=0.0)  # model.cpp:192

@@ -42,6 +42,7 @@ TREE = [
     ("sync.background", "step"),
     ("step.render", "step"),
     ("render.project", "step.render"),
+    ("render.sh", "step.render"),
     ("render.bin", "step.render"),
     ("sync.stream_total", "render.bin"),
     ("render.raster", "step.render"),
@@ -269,6 +270,25 @@ def test_parallel_trainers_step_spans(make):
                > by_name[n].end_ns - by_name[n].start_ns
                for n in ("step.render", "step.backward", "step.adam"))
     assert added["trainer.steps"] == added["trainer.scene_steps"] == 1
+
+
+def test_sh_runs_in_its_own_span(monkeypatch):
+    """The render's SH colours run inside render.sh, under step.render,
+    and outside render.project."""
+    from opensplat_tpu_torch.models import splat_model
+
+    open_at_call = []
+
+    def seen(*args):
+        open_at_call.append([s.name for s in metrics._open.stack])
+        return real(*args)
+
+    real = splat_model.render_colours
+    monkeypatch.setattr(splat_model, "render_colours", seen)
+    state, cams = _scene(4, 2, [0])
+    _step(_trainer(Trainer, state, cams), 11)
+    assert open_at_call == [["trainer.run_step", "step", "step.render",
+                             "render.sh"]]
 
 
 # camera depths of a hand-built scene's rows (identity pose: depth is
